@@ -5,22 +5,41 @@
 
 Phases, each reported on its own lines:
 
-  0. set-up: the card's name and power limit, and the build of the CUDA
-     EI/argmax kernel from `src/repro_torch/kernels/ei_argmax/csrc/`;
+  0. set-up: the card's name and power limit, and the builds of the CUDA
+     kernels (EI/argmax from `src/repro_torch/kernels/ei_argmax/csrc/`,
+     flash attention from `src/repro_torch/kernels/flash_attention/csrc/`),
+     one `nvcc` each, started together;
   1. the kernel against its plain PyTorch version on the card, over the
-     shapes of the main path and the edge cases, with both timed by CUDA
-     events and by `torch.profiler` at the shape of each of the paths below;
+     shapes of the main path and the edge cases, with both timed at the
+     shape of each of the paths below (`cuda_time_ms` and `graph_ms`);
   2. the paper's pipeline on the card (profiling → memory model → split →
      two-phase GP+EI search) for the 16 Table II jobs: fused-layout Ruya
      and CherryPick held against the feature layout and `run_ruya`, and
      the Table II quotients;
   3. the catalog scale: CherryPick over a 131072-configuration space, with
      a profiled breakdown of one BO step;
-  4. the `n512-budgeted` golden fixture, replayed on the card.
+  4. the `n512-budgeted` golden fixture, replayed on the card;
+  5. the flash-attention kernel against its plain PyTorch version on the
+     card, at the shapes of `tests/test_kernels.py` and at the Qwen3-8B
+     forward's shape, each in float32 and bfloat16; at the forward shape
+     it, its plain version and `scaled_dot_product_attention` (the library
+     yardstick, which the port never calls) are timed;
+  6. the Qwen3-8B teacher-forced forward at full width and depth (36
+     layers, float32 parameters drawn on the card from a seed, bfloat16
+     compute, B=1, T=4096), held against the same parameters run through
+     the dense attention route, with layer 0's kernel output held against
+     the plain version on that layer's own q, k and v;
+  7. serving Qwen3-8B at full width through `repro_torch.launch.serve`:
+     batch 4, Zipf prompts of 512 tokens, 64 greedy new tokens, cache
+     length 1024, the tokens held against the teacher-forced forward's
+     argmax under the tie rule of `repro_torch.testing`.
 
-Phases 2-4 are the three paths that run the kernel.  Each sets the
-kernel's launch count to 0 just before its run, reads it just after, and
-fails unless the kernel ran exactly once per fused BO step.
+Phases 2-4 are the three paths that run the EI/argmax kernel, phase 6 the
+path that runs the flash-attention kernel.  Each sets the launch counts to
+0 just before its run, reads them just after, and fails unless its kernel
+ran exactly once per fused BO step (phases 2-4) or once per layer of each
+forward (phase 6).  Serving runs no kernel, as in the reference (prefill
+and decode attend through the cache); phase 7 checks that too.
 
 A failed check fails the run: the script exits non-zero and prints no
 result.  It needs a CUDA card and the rest of the checkout; without either
@@ -39,6 +58,7 @@ import sys
 import time
 import traceback
 import types
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -51,6 +71,7 @@ GiB = 1024.0**3
 # the tensor cores, both at the full 700 W power limit.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12  # tensor cores, dense
 
 JOB_ORDER = [  # Table II row order (benchmarks/common.py)
     "naivebayes/spark/bigdata", "naivebayes/spark/huge",
@@ -113,6 +134,40 @@ def cuda_time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device time per call of ``fn``: ``calls`` calls captured in one CUDA
+    graph, the graph replayed ``reps`` times, each replay timed by CUDA
+    events (median).  With the host out of the way this is the card's time
+    for the work, plus the graph's gap between kernels (a microsecond or
+    so each).  It replaces per-call `torch.profiler` sessions, which on the
+    card come back with no device time once a process has run a few."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture: builds, workspaces
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del graph
+    return float(np.median(times))
+
+
 def _device_events(prof):
     """(name, device µs) of each kernel in a `torch.profiler` run.  Only the
     device-side events count: the CPU op that launched a kernel carries its
@@ -123,24 +178,6 @@ def _device_events(prof):
         if evt.device_type == DeviceType.CUDA:
             t = getattr(evt, "self_device_time_total", None)
             yield evt.key, (t if t is not None else evt.self_cuda_time_total)
-
-
-def device_ms(fn, kernel_names=None, reps: int = 20):
-    """Device time per call of ``fn`` from `torch.profiler`: the kernels whose
-    names contain one of ``kernel_names`` (None: every kernel).  None when
-    the profiler records no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(t for name, t in _device_events(prof)
-                if kernel_names is None or any(k in name for k in kernel_names))
-    return total / reps / 1e3 if total > 0 else None
 
 
 def ei_argmax_bound(n_live: int, n: int, d: int, b: int) -> dict:
@@ -276,16 +313,16 @@ def phase_kernel(dev, report) -> dict:
         check(f"{path} timing case", c)
         ms = cuda_time_ms(lambda: ei_argmax(*tail_args(c)))
         plain_ms = cuda_time_ms(lambda: ei_argmax_plain(*tail_args(c)))
-        k_dev = device_ms(lambda: ei_argmax(*tail_args(c)),
-                          ("ei_tile_kernel", "ei_reduce_kernel"))
-        p_dev = device_ms(lambda: ei_argmax_plain(*tail_args(c)))
+        k_dev = graph_ms(lambda: ei_argmax(*tail_args(c)))
+        p_dev = graph_ms(lambda: ei_argmax_plain(*tail_args(c)), calls=2)
         bound = ei_argmax_bound(int(c.mask.sum()), n, d, cap)
         times[path] = dict(shape=f"n={n} d={d} B={cap}", ms=ms, plain_ms=plain_ms,
                            device_ms=k_dev, plain_device_ms=p_dev,
                            max_abs_err=errs[f"{path} timing case"], **bound)
         print(f"  time, {path} shape n={n} d={d} B={cap}: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms (CUDA events around one call, median of 30); "
-              f"profiler device time per call: kernel {k_dev} ms, plain {p_dev} ms; "
+              f"device time per call (CUDA graph replay): kernel {k_dev:.4f} ms, plain "
+              f"{p_dev:.4f} ms; "
               f"bound {bound['bound_ms']:.6f} ms ({bound['bound_by']}; "
               f"{bound['bytes']} B, {bound['flops']} flop)")
     report["kernel_max_abs_err"] = max(errs.values())
@@ -573,6 +610,382 @@ def phase_fixture(dev, report) -> int:
     return launches
 
 
+# ---------------------------------------------------------------- phase 5
+
+FA_CASES = [  # tests/test_kernels.py's sweep: (b, t, h, kv, d, causal)
+    (1, 128, 4, 4, 64, True),
+    (2, 128, 4, 2, 64, True),   # GQA
+    (1, 256, 8, 1, 32, True),   # MQA
+    (2, 128, 4, 2, 128, True),  # head_dim 128
+    (1, 128, 4, 4, 64, False),  # bidirectional
+    (1, 100, 4, 2, 64, False),  # ragged T
+    (1, 200, 6, 3, 48, True),   # ragged T, causal
+]
+# Kernel against plain version, as tests/test_kernels.py holds the TPU
+# kernel against its oracle: float32 sums in another order (its limits);
+# in bfloat16 both round the same float32 result once, so they differ by at
+# most one bfloat16 step of the output (2^-7 relative), with 1e-3 absolute
+# for outputs near zero.
+FA_TOL = {"float32": dict(rtol=1e-4, atol=2e-5), "bfloat16": dict(rtol=2.0**-7, atol=1e-3)}
+# The library yardstick rounds the probabilities to bfloat16 before P.V, so
+# it is held to the reference test's bfloat16 limit instead: it is only
+# there to show that the timed call computes the same function.
+SDPA_TOL = dict(rtol=2.0**-7, atol=2e-2)
+FWD_SHAPE = (1, 4096, 32, 8, 128)  # Qwen3-8B forward: (B, T, H, KV, D)
+ARCH = "qwen3-8b"
+FLASH_KERNEL_NAMES = ("flash_fwd_kernel",)
+
+
+def fa_inputs(dev, seed, b, t, h, kv, d, dtype):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=dev).to(getattr(torch, dtype))
+                 for shape in ((b, t, h, d), (b, t, kv, d), (b, t, kv, d)))
+
+
+def flash_bound(b, t, h, kv, d, causal, itemsize) -> dict:
+    """Least time for one attention forward: q, k, v read and o written once
+    over HBM bandwidth, and the products over the peak for the input type
+    (bfloat16: the tensor cores; float32: the CUDA cores).  The causal run
+    needs the query-key pairs at or before each query, T(T+1)/2 per head,
+    and each pair costs 2D for q.k and 2D for p.v."""
+    pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
+    flops = 4 * d * pairs
+    nbytes = itemsize * (2 * b * t * h * d + 2 * b * t * kv * d)
+    peak = PEAK_BF16_PER_S if itemsize == 2 else PEAK_FP32_PER_S
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_fp32_ms": max(t_bytes, flops / PEAK_FP32_PER_S * 1e3)}
+
+
+def sdpa(q, k, v):
+    """The library yardstick: one PyTorch call for the same function."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                          v.transpose(1, 2), is_causal=True,
+                                          enable_gqa=True).transpose(1, 2)
+
+
+def phase_flash(dev, report) -> dict:
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
+    from repro_torch.testing import assert_close
+
+    print(f"phase 5: flash-attention kernel vs plain version on the card "
+          f"(float32 {FA_TOL['float32']}; bfloat16 {FA_TOL['bfloat16']})")
+    b, t, h, kv, d = FWD_SHAPE
+    errs = {}
+
+    def check(name, q, k, v, causal):
+        out = flash_attention(q, k, v, causal)
+        plain = flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"non-finite kernel output at {name}")
+        errs[name] = assert_close(plain.float().cpu().numpy(), out.float().cpu().numpy(),
+                                  **FA_TOL[str(q.dtype).split(".")[1]], what=name)
+        print(f"  {name:52s} max |kernel - plain| {errs[name]:.3e}")
+        return out
+
+    with torch.inference_mode():
+        for i, (cb, ct, ch, ckv, cd, causal) in enumerate(FA_CASES):
+            for dt in ("float32", "bfloat16"):
+                check(f"b={cb} t={ct} h={ch} kv={ckv} d={cd} causal={causal} {dt}",
+                      *fa_inputs(dev, 100 + i, cb, ct, ch, ckv, cd, dt), causal)
+        shape = f"B={b} T={t} H={h} KV={kv} D={d}"
+        check(f"forward shape {shape} causal float32",
+              *fa_inputs(dev, 7, b, t, h, kv, d, "float32"), True)
+        q, k, v = fa_inputs(dev, 7, b, t, h, kv, d, "bfloat16")
+        name = f"forward shape {shape} causal bfloat16"
+        out = check(name, q, k, v, True)
+        err_lib = assert_close(sdpa(q, k, v).float().cpu().numpy(), out.float().cpu().numpy(),
+                               **SDPA_TOL, what=f"{name} vs SDPA")
+        print(f"  {name}: max |kernel - SDPA| {err_lib:.3e} (SDPA held to {SDPA_TOL})")
+        ms = cuda_time_ms(lambda: flash_attention(q, k, v, True), reps=20)
+        plain_ms = cuda_time_ms(lambda: flash_attention_plain(q, k, v), reps=3, warmup=0)
+        lib_ms = cuda_time_ms(lambda: sdpa(q, k, v), reps=20)
+        k_dev = graph_ms(lambda: flash_attention(q, k, v, True))
+        p_dev = graph_ms(lambda: flash_attention_plain(q, k, v), calls=1, reps=3)
+        l_dev = graph_ms(lambda: sdpa(q, k, v))
+    bound = flash_bound(b, t, h, kv, d, True, 2)
+    print(f"  time at the forward shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+          f"{lib_ms:.4f} ms (CUDA events around one call, median of 20, 3 and 20); device "
+          f"time per call (CUDA graph replay): kernel {k_dev:.4f} ms, plain {p_dev:.4f} ms, "
+          f"SDPA {l_dev:.4f} ms; bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}, "
+          f"bf16 tensor-core peak; {bound['bound_fp32_ms']:.4f} ms at the FP32 peak; "
+          f"{bound['bytes']} B, {bound['flops']} flop)")
+    times = dict(shape=f"{shape} bf16 causal", max_abs_err=errs[name], ms=ms,
+                 plain_ms=plain_ms, device_ms=k_dev, plain_device_ms=p_dev,
+                 library_ms=lib_ms, library_device_ms=l_dev, **bound)
+    report["flash"] = {"case_errs": errs, "sdpa_err": err_lib, **times}
+    return times
+
+
+# ---------------------------------------------------------------- phase 6
+
+FWD_CALLS = 2  # teacher-forced forwards in the counted run
+# Flash route against dense route, bfloat16 compute, 36 layers.  The dense
+# route rounds the scores and the probabilities to bfloat16, the kernel keeps
+# them in float32; the difference propagates through every later layer.  On
+# the CPU, at 36 layers of head_dim 128 (d_model 512, T 512), the logits of
+# the two routes differ by 0.9 % RMS and at most 0.047 (logits of RMS 1):
+# allow 2^-5 RMS and 2^-2 at any logit, over 3x and 5x those.
+FORWARD_RMS_REL = 2.0**-5
+FORWARD_MAX_ABS = 2.0**-2
+
+
+def phase_forward(dev, report) -> int:
+    import torch
+
+    from repro_torch import configs as C
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Model
+    from repro_torch.testing import assert_close
+
+    cfg = C.get(ARCH).model
+    b, t = 1, FWD_SHAPE[1]
+    print(f"phase 6: {ARCH} teacher-forced forward, {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, vocab {cfg.vocab_size}, "
+          f"{cfg.param_dtype} params, {cfg.compute_dtype} compute, B={b} T={t}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  {n_params} parameters drawn on the card in {init_s:.2f} s "
+          f"({torch.cuda.memory_allocated() / 1e9:.2f} GB)")
+    if n_params != model.total_params():
+        raise AssertionError(f"{n_params} parameters, the spec says {model.total_params()}")
+    batch = {"tokens": torch.as_tensor(make_batch(cfg, b, t, seed=0)["tokens"], device=dev)}
+
+    captured = []  # layer 0's (q, k, v, out), taken on its way through the kernel
+
+    def capture(q, k, v, causal=True, *rest):
+        out = flash_attention(q, k, v, causal, *rest)
+        if not captured:
+            captured.append((q, k, v, out))
+        return out
+
+    walls = []
+    with torch.inference_mode():
+        L.flash_attention = capture
+        try:
+            flash_attention_cuda.launches = 0
+            for _ in range(FWD_CALLS):
+                t0 = time.perf_counter()
+                logits, _ = model.forward(batch)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            launches = flash_attention_cuda.launches
+        finally:
+            L.flash_attention = flash_attention
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  flash kernel launches {launches} over {FWD_CALLS} forwards of "
+              f"{cfg.num_layers} layers; forward wall {walls[0]:.1f} ms (first), "
+              f"{walls[1]:.1f} ms (second); peak allocated {peak / 1e9:.2f} GB")
+        if launches != FWD_CALLS * cfg.num_layers:
+            raise AssertionError(f"flash kernel launched {launches} times in {FWD_CALLS} "
+                                 f"forwards of {cfg.num_layers} layers")
+        if tuple(logits.shape) != (b, t, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"forward logits of shape {tuple(logits.shape)} not finite")
+
+        q, k, v, out = captured[0]
+        plain = flash_attention_plain(q, k, v)
+        err0 = assert_close(plain.float().cpu().numpy(), out.float().cpu().numpy(),
+                            **FA_TOL["bfloat16"], what="layer 0 kernel vs plain")
+        print(f"  layer 0: q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}; max |kernel - "
+              f"plain| {err0:.3e} on that layer's own q, k, v")
+
+        fwd_ms = cuda_time_ms(lambda: model.forward(batch), reps=3, warmup=0)
+        with_prof = forward_breakdown(lambda: model.forward(batch))
+
+        dense = Model(cfg.replace(attention_impl="dense"), params=model.params_tree(), device=dev)
+        dense_logits, _ = dense.forward(batch)
+        dense_ms = cuda_time_ms(lambda: dense.forward(batch), reps=2, warmup=0)
+        diff = logits - dense_logits
+        rms_rel = float(diff.square().mean().sqrt() / dense_logits.square().mean().sqrt())
+        max_abs = float(diff.abs().max())
+        agree = float((logits.argmax(-1) == dense_logits.argmax(-1)).float().mean())
+        del diff
+    print(f"  forward {fwd_ms:.1f} ms by CUDA events (median of 3), dense route {dense_ms:.1f} "
+          f"ms (median of 2); flash vs dense logits: RMS {rms_rel:.3e} of the dense logits' "
+          f"RMS (limit {FORWARD_RMS_REL}), max |diff| {max_abs:.4f} (limit {FORWARD_MAX_ABS}), "
+          f"argmax agrees at {agree:.4f} of positions")
+    print(f"  profiled forward: wall {with_prof['wall_ms']:.1f} ms, device busy "
+          f"{with_prof['device_busy_ms']:.1f} ms, flash kernel {with_prof['kernel_ms']:.1f} ms "
+          f"({with_prof['kernel_share']:.3f} of device time; "
+          f"{with_prof['kernel_ms'] / cfg.num_layers:.4f} ms per launch), idle share "
+          f"{with_prof['idle_share']:.3f}")
+    for name, ms in with_prof["top_kernels_ms"].items():
+        print(f"    device {ms:.3f} ms  {name}")
+    if rms_rel > FORWARD_RMS_REL or max_abs > FORWARD_MAX_ABS:
+        raise AssertionError("flash route and dense route disagree beyond the stated tolerance")
+    report["forward"] = {
+        "params": n_params, "init_s": init_s, "launches": launches, "forward_calls": FWD_CALLS,
+        "wall_ms": walls, "events_ms": fwd_ms, "dense_events_ms": dense_ms,
+        "peak_bytes": int(peak), "layer0_err": err0, "rms_rel": rms_rel, "max_abs": max_abs,
+        "argmax_agree": agree, "breakdown": with_prof,
+    }
+    return launches
+
+
+def profile_summary(prof, calls: int, wall_ms: float, kernel_names=()) -> dict:
+    """Per call of a `torch.profiler` run of ``calls`` calls: device busy
+    time, the named kernels' time and share of it, the device's idle share
+    against ``wall_ms`` (per call), launches, and the largest device kernels
+    and host ops."""
+    from torch.autograd import DeviceType
+
+    busy = kern = 0.0
+    by_name = {}
+    for name, us in _device_events(prof):
+        busy += us
+        by_name[name[:60]] = by_name.get(name[:60], 0.0) + us / calls / 1e3
+        if any(k in name for k in kernel_names):
+            kern += us
+    events = prof.key_averages()
+    launches = sum(e.count for e in events if e.device_type == DeviceType.CUDA)
+    host = sorted(((e.self_cpu_time_total / calls / 1e3, e.key) for e in events
+                   if e.key.startswith("aten::")), reverse=True)[:6]
+    busy_ms, kern_ms = busy / calls / 1e3, kern / calls / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "kernel_ms": kern_ms,
+            "kernel_share": kern_ms / busy_ms if busy_ms else None,
+            "idle_share": 1 - busy_ms / wall_ms, "device_kernels": launches / calls,
+            "top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6]),
+            "top_host_ops_ms": {name: ms for ms, name in host}}
+
+
+def forward_breakdown(fn) -> dict:
+    """One call of ``fn`` under `torch.profiler` (`profile_summary`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return profile_summary(prof, 1, wall, FLASH_KERNEL_NAMES)
+
+
+# ---------------------------------------------------------------- phase 7
+
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_LEN = 4, 512, 64, 1024
+# The served tokens against the argmax of a teacher-forced forward over the
+# prompt and those tokens: both run the dense route in bfloat16, at other
+# shapes (a 1024-slot cache against 575 keys), so their logits differ by a
+# few bfloat16 steps; a differing token is a certified tie when its logit
+# lies within 2^-3 of the forward's largest.  Ties are reported, not
+# counted; at least 3 of the 4 rows must match in full (every run on the
+# card so far: 3, the fourth ending at a tie after 31 matching steps).
+SERVE_TIE_ATOL = 2.0**-3
+SERVE_MIN_FULL = 3
+
+
+def phase_serve(dev, report) -> None:
+    import torch
+
+    from repro_torch.kernels.ei_argmax.kernel import ei_argmax_cuda
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.launch import serve
+    from repro_torch.testing import compare_token_traces
+
+    print(f"phase 7: serving {ARCH} through repro_torch.launch.serve: batch {SERVE_BATCH}, "
+          f"Zipf prompts of {SERVE_PROMPT} tokens, {SERVE_NEW} greedy new tokens, cache "
+          f"{SERVE_MAX_LEN}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = serve.build_model(ARCH, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"  model built and its matrices cast to {model.cfg.compute_dtype} in "
+          f"{time.perf_counter() - t0:.2f} s ({torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"resident)")
+    loop = serve.serve_loop(model, SERVE_BATCH, SERVE_MAX_LEN)
+    batch = serve.requests(model, SERVE_BATCH, SERVE_PROMPT, seed=0)
+    loop.generate(batch, 4)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_cuda.launches = ei_argmax_cuda.launches = 0
+    out = loop.generate(batch, SERVE_NEW, echo_metrics=True)
+    launches = (flash_attention_cuda.launches, ei_argmax_cuda.launches)
+    peak = torch.cuda.max_memory_allocated()
+    m = out["metrics"]
+    tokens = out["tokens"]
+    step_ms = m["decode_s"] * 1e3 / max(m["decoded"] - 1, 1)
+    print(f"  prefill {m['prefill_s'] * 1e3:.1f} ms, decode {step_ms:.2f} ms per step "
+          f"({m['decoded'] - 1} steps), {m['tokens_per_s']:.1f} tokens/s; peak allocated "
+          f"{peak / 1e9:.2f} GB")
+    print(f"  kernel launches while serving: flash {launches[0]}, ei_argmax {launches[1]} "
+          f"(prefill and decode attend through the cache; no kernel runs, as in the reference)")
+    if launches != (0, 0):
+        raise AssertionError(f"serving launched kernels {launches}")
+    if tokens.shape != (SERVE_BATCH, SERVE_NEW):
+        raise AssertionError(f"served tokens of shape {tokens.shape}")
+
+    with torch.inference_mode():
+        seq = torch.cat([batch["tokens"].long(), torch.as_tensor(tokens[:, :-1], device=dev).long()], 1)
+        logits, _ = model.forward({"tokens": seq})
+        logits = logits[:, SERVE_PROMPT - 1:]
+        ref_tokens = logits.argmax(-1).cpu().numpy()
+        ref_logits = logits.cpu().numpy()
+    cmp = compare_token_traces(ref_tokens, tokens, ref_logits, atol=SERVE_TIE_ATOL)
+    print(f"  served tokens vs the teacher-forced forward's argmax: {cmp.matched} of "
+          f"{SERVE_BATCH} rows match in full, {len(cmp.ties)} end at a certified tie "
+          f"(within {SERVE_TIE_ATOL}; reported, not counted as matches)")
+    for b, n, detail in cmp.ties:
+        print(f"    tie: row {b} step {n}: {detail}")
+    if cmp.matched < min(SERVE_MIN_FULL, SERVE_BATCH):
+        raise AssertionError(f"{cmp.matched} of {SERVE_BATCH} served rows match the forward "
+                             f"in full; at least {SERVE_MIN_FULL} must")
+    prof = decode_breakdown(model, batch)
+    print(f"  profiled decode step: wall {prof['wall_ms']:.2f} ms, device busy "
+          f"{prof['device_busy_ms']:.2f} ms (idle share {prof['idle_share']:.3f}), "
+          f"{prof['device_kernels']} kernels per step")
+    for name, ms in prof["top_kernels_ms"].items():
+        print(f"    device {ms:.3f} ms  {name}")
+    for name, ms in prof["top_host_ops_ms"].items():
+        print(f"    host   {ms:.3f} ms  {name}")
+    report["serve"] = {
+        "decode_breakdown": prof,
+        "prefill_ms": m["prefill_s"] * 1e3, "decode_ms_per_step": step_ms,
+        "tokens_per_s": m["tokens_per_s"], "decoded": m["decoded"], "peak_bytes": int(peak),
+        "full_matches": cmp.matched, "ties": [list(t) for t in cmp.ties],
+        "launches": {"flash_attention": launches[0], "ei_argmax": launches[1]},
+    }
+
+
+def decode_breakdown(model, batch, steps: int = 8) -> dict:
+    """Decode steps after a prefill, under `torch.profiler` (`profile_summary`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    b, t = batch["tokens"].shape
+    with torch.inference_mode():
+        cache = model.init_cache(b, SERVE_MAX_LEN)
+        logits, cache = model.prefill(batch, cache)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        model.decode_step(cache, tok, t)  # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                logits, cache = model.decode_step(cache, tok, t + 1 + i)
+                tok = logits[:, -1].argmax(-1)[:, None]
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / steps
+    return profile_summary(prof, steps, wall)
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -590,6 +1003,7 @@ def main(argv=None) -> int:
         from repro_torch.device import resolve_device
         from repro_torch.kernels import build
         from repro_torch.kernels.ei_argmax import kernel as ei_kernel
+        from repro_torch.kernels.flash_attention import kernel as fa_kernel
     except ImportError as e:
         print(f"chip_smoke: the port is not next to this script ({e})", file=sys.stderr)
         return 2
@@ -599,20 +1013,29 @@ def main(argv=None) -> int:
     print(f"phase 0: card {card}; torch {torch.__version__} CUDA {torch.version.cuda}; "
           f"allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     t0 = time.perf_counter()
-    ei_kernel.load()
-    print(f"  ei_argmax kernel built and loaded in {time.perf_counter() - t0:.2f} s")
-    for line in build.build_log("ei_argmax").splitlines():
-        if "registers" in line or "spill" in line or "built in" in line:
-            print(f"    {line.strip()}")
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
+        for f in [pool.submit(m.load) for m in (ei_kernel, fa_kernel)]:
+            f.result()
+    print(f"  ei_argmax and flash_attention kernels built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name in ("ei_argmax", "flash_attention"):
+        for line in build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line or "built in" in line:
+                print(f"    {name}: {line.strip()}")
+    print(f"    flash_attention: {fa_kernel.load().flash_attention_smem_bytes(FWD_SHAPE[4])} "
+          f"bytes of dynamic shared memory per block at D={FWD_SHAPE[4]}")
 
     report = {"card": card}
     failed = []
-    times, launches = None, {}
+    times, fa_times, launches = None, None, {}
     for name, phase in (
         ("kernel", lambda: phase_kernel(dev, report)),
         ("pipeline", lambda: phase_pipeline(dev, SEEDS, report)),
         ("catalog", lambda: phase_catalog(dev, report)),
         ("fixture", lambda: phase_fixture(dev, report)),
+        ("flash", lambda: phase_flash(dev, report)),
+        ("forward", lambda: phase_forward(dev, report)),
+        ("serve", lambda: phase_serve(dev, report)),
     ):
         try:
             out = phase()
@@ -621,9 +1044,13 @@ def main(argv=None) -> int:
             print(f"  FAILED: phase {name}")
             failed.append(name)
             continue
+        finally:
+            torch.cuda.empty_cache()
         if name == "kernel":
             times = out
-        else:
+        elif name == "flash":
+            fa_times = out
+        elif name != "serve":
             launches[name] = out
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
@@ -651,6 +1078,24 @@ def main(argv=None) -> int:
         "bound_by": t["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this function
     } for path, t in times.items()]
+    kernels.append({
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:113",
+        "path": "forward",
+        "shape": fa_times["shape"],
+        "launches": launches["forward"],
+        "max_abs_err": fa_times["max_abs_err"],
+        "ms": fa_times["ms"],
+        "plain_ms": fa_times["plain_ms"],
+        "device_ms": fa_times["device_ms"],
+        "plain_device_ms": fa_times["plain_device_ms"],
+        "bound_ms": fa_times["bound_ms"],
+        "bound_by": fa_times["bound_by"],
+        "library_ms": fa_times["library_ms"],  # scaled_dot_product_attention
+        "library_device_ms": fa_times["library_device_ms"],
+    })
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,7 @@ search runs on ``device`` (the card unless the caller passes
 
 The reference's ``cost_table`` path replays recorded costs through its
 batched fleet engine; the port's fleet slice is still to come (ROADMAP,
-Queue 1, item 9), and until then that path raises `NotImplementedError`.
+Queue 1, item 14), and until then that path raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ __all__ = ["RuyaReport", "canonical_objective", "run_ruya", "run_cherrypick"]
 
 _FLEET_ITEM = (
     "the cost_table path runs on the fleet engine, which the port does not "
-    "have yet (ROADMAP, Queue 1, item 9: fleet engine and session)"
+    "have yet (ROADMAP, Queue 1, item 14: fleet engine and session)"
 )
 
 # A tuning objective is "runtime", "cost", or a weight mapping over both

@@ -28,7 +28,8 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",  # registers, shared memory and spills, into the build log
 )
 
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()  # guards _NAME_LOCKS
+_NAME_LOCKS: Dict[str, threading.Lock] = {}
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _LOGS: Dict[str, str] = {}
 
@@ -53,9 +54,12 @@ def _digest(sources: Sequence[Path]) -> str:
 
 
 def load_library(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
-    """Build (if needed) and load ``lib<name>`` from ``sources``."""
+    """Build (if needed) and load ``lib<name>`` from ``sources``.  Different
+    libraries build concurrently when loaded from several threads."""
     sources = [Path(s) for s in sources]
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name in _LOADED:
             return _LOADED[name]
         so = BUILD_DIR / f"lib{name}-{_digest(sources)}.so"

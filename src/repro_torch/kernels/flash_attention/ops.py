@@ -1,0 +1,119 @@
+"""Public flash-attention op: CUDA kernel on the card, plain version on the CPU, autograd.
+
+Port of `repro/kernels/flash_attention/ops.py`.
+
+  * A CUDA tensor launches the hand-written kernel
+    (`kernel.flash_attention_cuda`) or raises.  The kernel masks the ragged
+    edge of T and S itself, so nothing is padded: its result is the
+    reference's ``out[:, :t]`` of the padded call.
+  * A CPU tensor takes `flash_attention_plain`: the kernel's online softmax
+    over key tiles, in torch, with the same -1e30 sentinel, the same
+    skipping of key tiles wholly in the future of a query tile, and the
+    same 1e-30 floor on the denominator.
+  * The backward is autograd through `ref.attention_ref`, as the
+    reference's custom VJP is the oracle's VJP.
+
+The kernel is built for 64 x 64 tiles (`kernel.BLOCK_Q`, `kernel.BLOCK_K`);
+the plain version takes the tile sizes as ``block_q`` and ``block_k``, and
+its result does not depend on them beyond float32 rounding.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention.kernel import (
+    BLOCK_K,
+    BLOCK_Q,
+    flash_attention_cuda,
+)
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+__all__ = ["flash_attention", "flash_attention_plain"]
+
+NEG_INF = -1e30
+
+
+def flash_attention_plain(
+    q: torch.Tensor,  # (B, T, H, D)
+    k: torch.Tensor,  # (B, S, KV, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    sm_scale: Optional[float] = None,
+    block_q: int = BLOCK_Q,
+    block_k: int = BLOCK_K,
+) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch, on any device: (B,T,H,D) in q's dtype."""
+    b, t, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    f32 = torch.float32
+    heads = torch.arange(h, device=q.device) * kv // h  # query head -> KV head
+    qf = q.to(f32).permute(0, 2, 1, 3)  # (b, h, t, d)
+    kf = k.to(f32).index_select(2, heads).permute(0, 2, 1, 3)  # (b, h, s, d)
+    vf = v.to(f32).index_select(2, heads).permute(0, 2, 1, 3)
+    out = torch.empty((b, h, t, d), dtype=f32, device=q.device)
+    for q0 in range(0, t, block_q):
+        qt = qf[:, :, q0:q0 + block_q]
+        n = qt.shape[2]
+        qpos = torch.arange(q0, q0 + n, device=q.device)[:, None]
+        m = torch.full((b, h, n, 1), NEG_INF, dtype=f32, device=q.device)
+        l = torch.zeros((b, h, n, 1), dtype=f32, device=q.device)
+        acc = torch.zeros((b, h, n, d), dtype=f32, device=q.device)
+        k_end = min(s, q0 + block_q) if causal else s
+        for k0 in range(0, k_end, block_k):
+            kt = kf[:, :, k0:k0 + block_k]
+            vt = vf[:, :, k0:k0 + block_k]
+            sc = (qt @ kt.transpose(-1, -2)) * scale
+            if causal:
+                kpos = torch.arange(k0, k0 + kt.shape[2], device=q.device)[None, :]
+                sc = sc.masked_fill(qpos < kpos, NEG_INF)
+            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(sc - m_new)
+            l = alpha * l + p.sum(-1, keepdim=True)
+            acc = acc * alpha + p @ vt
+            m = m_new
+        out[:, :, q0:q0 + n] = acc / l.clamp_min(1e-30)
+    return out.permute(0, 2, 1, 3).contiguous().to(q.dtype)
+
+
+def _forward(q, k, v, causal, sm_scale):
+    if q.device.type == "cuda":
+        return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                    causal=causal, sm_scale=sm_scale)
+    if q.device.type != "cpu":
+        raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
+    return flash_attention_plain(q, k, v, causal=causal, sm_scale=sm_scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return _forward(q, k, v, causal, sm_scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            out = attention_ref(*leaves, causal=ctx.causal, sm_scale=ctx.sm_scale)
+            grads = torch.autograd.grad(out, leaves, g)
+        return (*grads, None, None)
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, T, H, D)
+    k: torch.Tensor,  # (B, S, KV, D)
+    v: torch.Tensor,
+    causal: bool = True,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Attention forward (B,T,H,D) in q's dtype; differentiable in q, k, v."""
+    return _FlashAttention.apply(q, k, v, causal, sm_scale)

@@ -1,0 +1,346 @@
+"""Shared layers of the model zoo (port of `repro/models/layers.py`).
+
+Each layer has ``<layer>_specs(cfg) -> {name: TensorSpec}`` and a
+functional ``<layer>_apply(p, cfg, x, ...)`` over a dict of tensors, in the
+reference's layouts: activations (B,T,d), q (B,T,H,hd), k and v
+(B,S,KV,hd), ``wq`` (d,H,hd), ``wo`` (H,hd,d), caches (B,max_len,KV,hd).
+Every cast to the compute dtype and back to float32 sits where the
+reference puts it, so bfloat16 rounds at the same places.
+
+The flash-attention kernel runs where the reference runs its Pallas
+kernel: causal self-attention without a cache (the teacher-forced
+forward), when `_use_flash` says so.  Prefill and decode go through
+`_sdpa`.  The reference's `shard_activation` constraints have no
+counterpart on one device.  Not ported yet: the MoE layer and the chunked
+(scan over key chunks) attention, ROADMAP Queue 1 item 11; both raise.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.spec import TensorSpec
+
+__all__ = [
+    "apply_rope",
+    "attn_apply",
+    "attn_specs",
+    "embed_apply",
+    "embedding_specs",
+    "init_kv_cache_specs",
+    "mlp_apply",
+    "mlp_specs",
+    "moe_apply",
+    "norm_apply",
+    "norm_specs",
+    "rope_tables",
+    "unembed_apply",
+]
+
+Params = Dict[str, torch.Tensor]
+_F32 = torch.float32
+
+# ---------------------------------------------------------------------------
+# Normalization
+# ---------------------------------------------------------------------------
+
+
+def norm_specs(cfg: ModelConfig, d: Optional[int] = None) -> Dict[str, TensorSpec]:
+    d = d or cfg.d_model
+    specs = {"scale": TensorSpec((d,), cfg.pdtype, ("embed",), init="ones")}
+    if cfg.norm == "layernorm":
+        specs["bias"] = TensorSpec((d,), cfg.pdtype, ("embed",), init="zeros")
+    return specs
+
+
+def norm_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """RMSNorm or LayerNorm with f32 statistics, output in compute dtype."""
+    xf = x.to(_F32)
+    if cfg.norm == "layernorm":
+        mean = xf.mean(-1, keepdim=True)
+        var = (xf - mean).square().mean(-1, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + 1e-5)
+        y = y * p["scale"].to(_F32) + p["bias"].to(_F32)
+    else:
+        ms = xf.square().mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + 1e-6) * p["scale"].to(_F32)
+    return y.to(cfg.cdtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int,
+                theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables for integer ``positions`` (any shape), f32, of shape
+    ``positions.shape + (head_dim // 2,)``."""
+    half = head_dim // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=_F32, device=positions.device) / half)
+    angles = positions.to(_F32)[..., None] * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate pairs (split-half convention).  x: (..., heads, head_dim);
+    cos/sin broadcastable to (..., 1, head_dim//2)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].to(_F32), x[..., half:].to(_F32)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def attn_specs(cfg: ModelConfig) -> Dict[str, TensorSpec]:
+    """Projection parameters for one self-attention block."""
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    pd = cfg.pdtype
+    specs = {
+        "wq": TensorSpec((d, h, hd), pd, ("embed", "heads", "head_dim"), init="scaled_normal"),
+        "wk": TensorSpec((d, kv, hd), pd, ("embed", "kv_heads", "head_dim"),
+                         init="scaled_normal"),
+        "wv": TensorSpec((d, kv, hd), pd, ("embed", "kv_heads", "head_dim"),
+                         init="scaled_normal"),
+        "wo": TensorSpec((h, hd, d), pd, ("heads", "head_dim", "embed"), init="scaled_normal"),
+    }
+    if cfg.qkv_bias or cfg.use_bias:
+        specs["bq"] = TensorSpec((h, hd), pd, ("heads", "head_dim"))
+        specs["bk"] = TensorSpec((kv, hd), pd, ("kv_heads", "head_dim"))
+        specs["bv"] = TensorSpec((kv, hd), pd, ("kv_heads", "head_dim"))
+    if cfg.use_bias:
+        specs["bo"] = TensorSpec((d,), pd, ("embed",))
+    if cfg.qk_norm:
+        specs["q_norm"] = TensorSpec((hd,), pd, ("head_dim",), init="ones")
+        specs["k_norm"] = TensorSpec((hd,), pd, ("head_dim",), init="ones")
+    return specs
+
+
+def init_kv_cache_specs(cfg: ModelConfig, batch: int, max_len: int,
+                        num_layers: int) -> Dict[str, TensorSpec]:
+    """Stacked-over-layers KV cache for decode, in the compute dtype."""
+    shape = (num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    axes = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
+    return {"k": TensorSpec(shape, cfg.cdtype, axes), "v": TensorSpec(shape, cfg.cdtype, axes)}
+
+
+def _rms_head_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    xf = x.to(_F32)
+    ms = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + 1e-6) * scale.to(_F32)).to(x.dtype)
+
+
+def _project_qkv(p: Params, cfg: ModelConfig, xq: torch.Tensor,
+                 xkv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    cd = cfg.cdtype
+    q = torch.einsum("btd,dhk->bthk", xq, p["wq"].to(cd))
+    k = torch.einsum("bsd,dhk->bshk", xkv, p["wk"].to(cd))
+    v = torch.einsum("bsd,dhk->bshk", xkv, p["wv"].to(cd))
+    if "bq" in p:
+        q = q + p["bq"].to(cd)
+        k = k + p["bk"].to(cd)
+        v = v + p["bv"].to(cd)
+    if "q_norm" in p:
+        q = _rms_head_norm(q, p["q_norm"])
+        k = _rms_head_norm(k, p["k_norm"])
+    return q, k, v
+
+
+def _sdpa(
+    q: torch.Tensor,  # (B, T, H, hd)
+    k: torch.Tensor,  # (B, S, KV, hd)
+    v: torch.Tensor,  # (B, S, KV, hd)
+    *,
+    causal: bool,
+    q_offset: Optional[int] = None,
+    kv_len: Optional[int] = None,
+) -> torch.Tensor:
+    """Grouped-query scaled-dot-product attention, f32 softmax.
+
+    The logits come from a product in the inputs' dtype and the
+    probabilities are cast to v's dtype before P.V, as in the reference.
+    ``q_offset``: absolute position of query 0 (causal mask compares
+    i + q_offset >= j); ``kv_len``: only the first ``kv_len`` slots are valid.
+    """
+    b, t, h, hd = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, t, kv, h // kv, hd)
+    scale = 1.0 / math.sqrt(hd)
+    logits = torch.einsum("btkgh,bskh->bkgts", qg, k).to(_F32) * scale
+
+    mask = None
+    kpos = torch.arange(s, device=q.device)[None, :]
+    if causal:
+        qpos = torch.arange(t, device=q.device)[:, None] + (q_offset or 0)
+        mask = qpos >= kpos  # (t, s)
+    if kv_len is not None:
+        valid = kpos < kv_len
+        mask = valid if mask is None else (mask & valid)
+    if mask is not None:
+        logits = logits.masked_fill(~mask, -1e30)
+
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgts,bskh->btkgh", probs.to(v.dtype), v)
+    return out.reshape(b, t, h, hd)
+
+
+def _chunked_sdpa(q, k, v, *, causal, chunk, q_offset=None, kv_len=None):
+    raise NotImplementedError(
+        "attention_impl='chunked' is not ported yet (ROADMAP Queue 1 item 11)")
+
+
+def _use_chunked(cfg: ModelConfig, t: int, s: int) -> bool:
+    if cfg.attention_impl != "chunked":
+        return False
+    return t > 1 and s >= 2 * cfg.attention_chunk and s % cfg.attention_chunk == 0
+
+
+def _use_flash(cfg: ModelConfig, seq_len: int, device: torch.device) -> bool:
+    """Where the flash kernel runs: always for "pallas"; for "auto" on the
+    card when the sequence is a multiple of 128 (the reference's rule, with
+    the card in the TPU's place)."""
+    if cfg.attention_impl == "pallas":
+        return True
+    if cfg.attention_impl == "auto":
+        return device.type == "cuda" and seq_len % 128 == 0
+    return False
+
+
+def attn_apply(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,  # (B, T, d) queries
+    *,
+    positions: torch.Tensor,  # (B, T) absolute positions (ints)
+    causal: bool = True,
+    cache: Optional[Dict[str, torch.Tensor]] = None,  # {"k","v"} (B, S, KV, hd)
+    cache_index: Optional[int] = None,
+    use_rope: bool = True,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """One self-attention block.  Returns (output, cache or None).
+
+    Modes:
+      * train / teacher-forced: cache=None;
+      * prefill: cache=zeroed buffers, cache_index=0, fills [0, T);
+      * decode: cache=filled buffers, cache_index=current length.
+    The cache is written in place at [cache_index, cache_index + T) and
+    returned; the reference returns an updated copy.
+    """
+    q, k, v = _project_qkv(p, cfg, x, x)
+    t = x.shape[1]
+
+    if use_rope:
+        cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        q = apply_rope(q, cos[:, :, None, :], sin[:, :, None, :])
+        k = apply_rope(k, cos[:, :, None, :], sin[:, :, None, :])
+
+    q_offset = kv_len = None
+    if cache is not None:
+        idx = int(cache_index or 0)
+        if idx < 0 or idx + t > cache["k"].shape[1]:
+            raise ValueError(f"cache of length {cache['k'].shape[1]} cannot take "
+                             f"positions [{idx}, {idx + t})")
+        cache["k"][:, idx:idx + t] = k
+        cache["v"][:, idx:idx + t] = v
+        k, v = cache["k"], cache["v"]
+        kv_len = idx + t
+        q_offset = idx
+
+    if cache is None and causal and _use_flash(cfg, t, x.device):
+        out = flash_attention(q, k, v, True)
+    elif _use_chunked(cfg, t, k.shape[1]):
+        out = _chunked_sdpa(q, k, v, causal=causal, chunk=cfg.attention_chunk,
+                            q_offset=q_offset, kv_len=kv_len)
+    else:
+        out = _sdpa(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
+
+    y = torch.einsum("bthk,hkd->btd", out, p["wo"].to(cfg.cdtype))
+    if "bo" in p:
+        y = y + p["bo"].to(cfg.cdtype)
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, TensorSpec]:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    pd = cfg.pdtype
+    if cfg.mlp_act == "swiglu":
+        return {
+            "wi_gate": TensorSpec((d, f), pd, ("embed", "ffn"), init="scaled_normal"),
+            "wi_up": TensorSpec((d, f), pd, ("embed", "ffn"), init="scaled_normal"),
+            "wo": TensorSpec((f, d), pd, ("ffn", "embed"), init="scaled_normal"),
+        }
+    specs = {
+        "wi": TensorSpec((d, f), pd, ("embed", "ffn"), init="scaled_normal"),
+        "wo": TensorSpec((f, d), pd, ("ffn", "embed"), init="scaled_normal"),
+    }
+    if cfg.use_bias:
+        specs["bi"] = TensorSpec((f,), pd, ("ffn",))
+        specs["bo"] = TensorSpec((d,), pd, ("embed",))
+    return specs
+
+
+def mlp_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    cd = cfg.cdtype
+    if cfg.mlp_act == "swiglu":
+        gate = torch.einsum("btd,df->btf", x, p["wi_gate"].to(cd))
+        up = torch.einsum("btd,df->btf", x, p["wi_up"].to(cd))
+        h = F.silu(gate.to(_F32)).to(cd) * up
+        return torch.einsum("btf,fd->btd", h, p["wo"].to(cd))
+    h = torch.einsum("btd,df->btf", x, p["wi"].to(cd))
+    if "bi" in p:
+        h = h + p["bi"].to(cd)
+    h = F.gelu(h.to(_F32), approximate="tanh").to(cd)  # jax.nn.gelu's default
+    y = torch.einsum("btf,fd->btd", h, p["wo"].to(cd))
+    if "bo" in p:
+        y = y + p["bo"].to(cd)
+    return y
+
+
+def moe_apply(p: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor):
+    raise NotImplementedError("the MoE layer is not ported yet (ROADMAP Queue 1 item 11)")
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+
+def embedding_specs(cfg: ModelConfig) -> Dict[str, TensorSpec]:
+    specs = {
+        "embedding": TensorSpec((cfg.vocab_size, cfg.d_model), cfg.pdtype, ("vocab", "embed"),
+                                init="normal", init_scale=0.02)
+    }
+    if not cfg.tie_embeddings:
+        specs["unembed"] = TensorSpec((cfg.d_model, cfg.vocab_size), cfg.pdtype,
+                                      ("embed", "vocab"), init="scaled_normal")
+    return specs
+
+
+def embed_apply(p: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    # Rows first, then the cast: the reference's cast-then-gather, without
+    # a compute-dtype copy of the whole table.
+    return p["embedding"][tokens].to(cfg.cdtype)
+
+
+def unembed_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Final logits in f32."""
+    if cfg.tie_embeddings:
+        w = p["embedding"].to(cfg.cdtype).T
+    else:
+        w = p["unembed"].to(cfg.cdtype)
+    return torch.einsum("btd,dv->btv", x, w).to(_F32)

@@ -1,0 +1,93 @@
+"""Parameter and state specification trees (port of `repro/models/spec.py`).
+
+A model describes its parameters once, as a nested dict of `TensorSpec`
+(shape, dtype, logical axes, initializer); `init_tree` materializes it on a
+device from a `torch.Generator`, and `count_params` / `tree_bytes` size it
+without allocating anything.  The reference's `abstract_tree` and
+`partition_tree` serve its AOT dry-runs and mesh sharding; they come with
+the port of `parallel/` (ROADMAP Queue 1 item 17).
+
+Random initial values differ from the reference's (`jax.random` and
+`torch.Generator` draw different numbers from one seed); tests that compare
+the packages move the reference's values across (`models.convert`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Iterator, Optional, Tuple
+
+import torch
+
+__all__ = ["TensorSpec", "count_params", "init_tree", "leaves", "tree_bytes", "tree_map"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """Declarative description of one parameter / state tensor."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype = torch.float32
+    # One logical axis name (or None) per dimension, e.g. ("embed", "ffn").
+    axes: Tuple[Optional[str], ...] = ()
+    init: str = "zeros"  # zeros | normal | scaled_normal | ones
+    init_scale: float = 1.0
+
+    def __post_init__(self) -> None:
+        if self.axes and len(self.axes) != len(self.shape):
+            raise ValueError(f"axes {self.axes} do not match shape {self.shape}")
+
+
+def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
+    """``fn`` over the leaves of a tree of dicts and lists (specs or tensors)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """(dotted path, leaf) pairs in the tree's order; dict keys sorted, as
+    `jax.tree.leaves` orders them."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves(tree[k], f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from leaves(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def _init(spec: TensorSpec, generator: torch.Generator, device: torch.device) -> torch.Tensor:
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init == "normal":
+        std = spec.init_scale
+    elif spec.init == "scaled_normal":
+        # Fan-in scaled (LeCun) init: scale / sqrt(fan_in).
+        fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+        std = spec.init_scale / math.sqrt(max(fan_in, 1))
+    else:
+        raise ValueError(f"unknown init {spec.init!r}")
+    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32, device=device)
+    return x.mul_(std).to(spec.dtype)
+
+
+def init_tree(generator: torch.Generator, specs: Any, device=None) -> Any:
+    """Materialize a spec tree on ``device`` (the generator's by default),
+    drawing each leaf in turn from ``generator``."""
+    dev = torch.device(device) if device is not None else generator.device
+    return tree_map(lambda s: _init(s, generator, dev), specs)
+
+
+def count_params(specs: Any) -> int:
+    return sum(math.prod(s.shape) for _, s in leaves(specs))
+
+
+def tree_bytes(specs: Any) -> int:
+    return sum(math.prod(s.shape) * s.dtype.itemsize for _, s in leaves(specs))

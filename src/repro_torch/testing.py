@@ -35,6 +35,24 @@ log marginal likelihood by up to 5.1e-4·(1 + |lml|), hence
 ``LML_RTOL = 1e-3``.  Plain float
 outputs of the GP (means, variances, factors) agree to ``FLOAT_RTOL =
 1e-4`` and ``FLOAT_ATOL = 1e-5``.
+
+The model zoo.  In float32 compute the port's activations and logits
+agree with the reference's to ``FLOAT_RTOL`` and ``FLOAT_ATOL``.  In
+bfloat16 compute both packages round each product's output to bfloat16
+(8 significant bits, a relative step of 2^-8 to 2^-7) at the same places,
+but a float32 sum summed in another order can land on the other side of a
+rounding boundary, so a value may differ by one bfloat16 step, and such a
+step moves what later layers compute from it.  Through a full-width
+Qwen3-8B layer and the unembedding the logits (of size up to about 5)
+differ by up to 2^-5, four steps at size 1: ``BF16_RTOL = BF16_ATOL =
+2^-5``, which that case fills to 0.65 at worst
+(`tests/test_torch_models.py`).  Greedy decoding compares token traces (`compare_token_traces`):
+they agree step by step until the first step where they differ; that step
+is a certified tie when the reference's logit at the port's token lies
+within ``atol`` of the reference's largest logit (its top two are then
+closer than the two computations can separate), and the comparison of
+that row ends there, reported, not counted as a match.  Anything else
+raises.
 """
 
 from __future__ import annotations
@@ -45,13 +63,17 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 
 __all__ = [
+    "BF16_ATOL",
+    "BF16_RTOL",
     "EI_ATOL",
     "EI_RTOL",
     "FLOAT_ATOL",
     "FLOAT_RTOL",
     "LML_RTOL",
+    "TokenTraceComparison",
     "TraceComparison",
     "assert_close",
+    "compare_token_traces",
     "compare_traces",
     "packed_state",
     "pick_agrees",
@@ -64,6 +86,8 @@ FLOAT_ATOL = 1e-5
 EI_RTOL = 2e-4
 EI_ATOL = 1e-6
 LML_RTOL = 1e-3
+BF16_RTOL = 2.0**-5
+BF16_ATOL = 2.0**-5
 
 # ei_at(k) -> (EI over the whole space, best observed cost) for the state
 # holding the first k trials of the reference trace: EI of shape (n,), or
@@ -244,3 +268,41 @@ def port_ei_at(encoded: np.ndarray, pools: Sequence[Sequence[int]], capacity: in
         return ei.cpu().numpy(), float(best[0])
 
     return ei_at
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenTraceComparison:
+    """How far two greedy token traces agree: ``matched`` rows agree in full;
+    ``ties`` lists (row, step, detail) for each row whose comparison ended at
+    a certified tie."""
+
+    matched: int
+    ties: Tuple[Tuple[int, int, str], ...]
+
+
+def compare_token_traces(ref_tokens, got_tokens, ref_logits,
+                         *, atol: float) -> TokenTraceComparison:
+    """Compare greedy token traces (B, N) step by step under the reference's
+    logits (B, N, V): ``ref_logits[b, n]`` are the logits that chose
+    ``ref_tokens[b, n]``.  See the module docstring for the rule."""
+    ref_tokens = np.asarray(ref_tokens)
+    got_tokens = np.asarray(got_tokens)
+    if ref_tokens.shape != got_tokens.shape:
+        raise AssertionError(f"token traces differ in shape: {got_tokens.shape} != "
+                             f"{ref_tokens.shape}")
+    matched, ties = 0, []
+    for b in range(ref_tokens.shape[0]):
+        diff = np.flatnonzero(ref_tokens[b] != got_tokens[b])
+        if diff.size == 0:
+            matched += 1
+            continue
+        n = int(diff[0])
+        row = np.asarray(ref_logits[b, n], np.float64)
+        a, g = int(ref_tokens[b, n]), int(got_tokens[b, n])
+        top = float(row.max())
+        detail = (f"ref token {a} (logit {row[a]!r}), got {g} (logit {row[g]!r}), "
+                  f"largest {top!r}")
+        if not row[g] >= top - atol:
+            raise AssertionError(f"row {b}: token {n} differs and is not a tie: {detail}")
+        ties.append((b, n, detail))
+    return TokenTraceComparison(matched, tuple(ties))

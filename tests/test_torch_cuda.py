@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels against their plain versions, on the card.
 
-These tests need a CUDA card (and `nvcc` to build the kernel at first
+These tests need a CUDA card (and `nvcc` to build the kernels at first
 use); without one they skip with the reason.  They import neither JAX nor
 the JAX package, so they run on a machine that has only PyTorch:
 
@@ -19,6 +19,9 @@ from repro_torch.core.gp import pairwise_sqdist
 from repro_torch.kernels.ei_argmax import kernel
 from repro_torch.kernels.ei_argmax.ops import ei_argmax, ei_argmax_plain
 from repro_torch.kernels.ei_argmax.tile import ei_from_sqdist
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.testing import EI_ATOL, EI_RTOL, assert_close, pick_agrees
 
 pytestmark = pytest.mark.cuda
@@ -76,3 +79,95 @@ def test_kernel_rejects_what_it_cannot_take(dev):
     with pytest.raises(ValueError):
         kernel.ei_argmax_cuda(args[0].transpose(1, 2).contiguous().transpose(1, 2),
                               *args[1:6], scal)
+
+
+# ---------------------------------------------------------------- flash attention (K2)
+
+FA_SHAPES = [  # tests/test_kernels.py's sweep: (b, t, h, kv, d, causal)
+    (1, 128, 4, 4, 64, True),
+    (2, 128, 4, 2, 64, True),
+    (1, 256, 8, 1, 32, True),
+    (2, 128, 4, 2, 128, True),
+    (1, 128, 4, 4, 64, False),
+    (1, 100, 4, 2, 64, False),
+    (1, 200, 6, 3, 48, True),
+]
+# Kernel against plain version and attention_ref: float32 sums in another
+# order; in bfloat16 both round the same float32 result once, so they differ
+# by at most one bfloat16 step of the output (2^-7 relative), with 1e-3
+# absolute for outputs near zero.
+FA_TOL = {torch.float32: dict(rtol=1e-4, atol=2e-5), torch.bfloat16: dict(rtol=2.0**-7, atol=1e-3)}
+
+
+def qkv(dev, seed, b, t, h, kv, d, dtype, s=None):
+    rng = np.random.default_rng(seed)
+    s = t if s is None else s
+    return tuple(torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                 .to(dev, dtype) for shape in ((b, t, h, d), (b, s, kv, d), (b, s, kv, d)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,t,h,kv,d,causal", FA_SHAPES)
+def test_flash_kernel_matches_plain_version(dev, b, t, h, kv, d, causal, dtype):
+    q, k, v = qkv(dev, t * h + d, b, t, h, kv, d, dtype)
+    before = fa_kernel.flash_attention_cuda.launches
+    out = flash_attention(q, k, v, causal)
+    plain = flash_attention_plain(q, k, v, causal=causal)
+    ref = attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_kernel.flash_attention_cuda.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    assert bool(torch.isfinite(out).all())
+    assert_close(plain.float().cpu().numpy(), out.float().cpu().numpy(), **FA_TOL[dtype],
+                 what="kernel vs plain")
+    assert_close(ref.float().cpu().numpy(), out.float().cpu().numpy(), **FA_TOL[dtype],
+                 what="kernel vs attention_ref")
+
+
+def test_flash_kernel_long_ragged_and_large_logits(dev):
+    q, k, v = qkv(dev, 3, 1, 1000, 8, 2, 128, torch.bfloat16)
+    out = flash_attention(q, k, v, True)
+    assert_close(flash_attention_plain(q, k, v).float().cpu().numpy(),
+                 out.float().cpu().numpy(), **FA_TOL[torch.bfloat16])
+    big = torch.full((1, 128, 1, 64), 10.0, device=dev)
+    out = flash_attention(big, big, torch.randn(1, 128, 1, 64, device=dev), True)
+    assert bool(torch.isfinite(out).all())
+
+
+def test_flash_kernel_rejects_what_it_cannot_take(dev):
+    q, k, v = qkv(dev, 0, 1, 128, 4, 2, 64, torch.float32)
+    with pytest.raises(TypeError):
+        fa_kernel.flash_attention_cuda(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError):
+        fa_kernel.flash_attention_cuda(q, k.bfloat16(), v)
+    with pytest.raises(ValueError):
+        fa_kernel.flash_attention_cuda(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    q2, k2, v2 = qkv(dev, 0, 1, 128, 4, 2, 136, torch.float32)
+    with pytest.raises(ValueError):
+        fa_kernel.flash_attention_cuda(q2, k2, v2)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), v.half(), True)
+
+
+def test_model_forward_launches_flash_once_per_layer(dev):
+    """The teacher-forced forward runs the kernel in every layer and matches
+    the dense route; prefill and decode never launch it."""
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.model import Model
+
+    cfg = ModelConfig(name="tiny", family="dense", num_layers=3, d_model=128, num_heads=8,
+                      num_kv_heads=2, d_ff=256, vocab_size=512, head_dim=32, qk_norm=True,
+                      compute_dtype="float32", attention_impl="auto")
+    model = Model(cfg, device=dev, seed=0)
+    dense = Model(cfg.replace(attention_impl="dense"), params=model.params_tree(), device=dev)
+    tokens = torch.randint(0, 512, (2, 256), generator=torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        before = fa_kernel.flash_attention_cuda.launches
+        logits, _ = model.forward({"tokens": tokens})
+        assert fa_kernel.flash_attention_cuda.launches == before + cfg.num_layers
+        ref, _ = dense.forward({"tokens": tokens})
+        cache = model.init_cache(2, 300)
+        model.prefill({"tokens": tokens}, cache)
+        model.decode_step(cache, tokens[:, :1], 256)
+        assert fa_kernel.flash_attention_cuda.launches == before + cfg.num_layers
+    assert_close(ref.cpu().numpy(), logits.cpu().numpy(), rtol=1e-4, atol=1e-5)
