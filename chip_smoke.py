@@ -7,7 +7,8 @@ Phases, each reported on its own lines:
 
   0. set-up: the card's name and power limit, and the builds of the CUDA
      kernels (EI/argmax from `src/repro_torch/kernels/ei_argmax/csrc/`,
-     flash attention from `src/repro_torch/kernels/flash_attention/csrc/`),
+     flash attention from `src/repro_torch/kernels/flash_attention/csrc/`,
+     the SSD intra-chunk term from `src/repro_torch/kernels/ssd/csrc/`),
      one `nvcc` each, started together;
   1. the kernel against its plain PyTorch version on the card, over the
      shapes of the main path and the edge cases, with both timed at the
@@ -32,14 +33,30 @@ Phases, each reported on its own lines:
   7. serving Qwen3-8B at full width through `repro_torch.launch.serve`:
      batch 4, Zipf prompts of 512 tokens, 64 greedy new tokens, cache
      length 1024, the tokens held against the teacher-forced forward's
-     argmax under the tie rule of `repro_torch.testing`.
+     argmax under the tie rule of `repro_torch.testing`;
+  8. the SSD intra-chunk kernel against its plain PyTorch version on the
+     card, at the shapes of `tests/test_kernels.py`, the smoke model's
+     chunk, a ragged shape, and the shapes of phases 9 and 10 (B and C as
+     head-broadcast views there, as the model passes them), timed at the
+     latter two;
+  9. the mamba2-370m teacher-forced forward at full width and depth (48
+     layers, float32 parameters drawn on the card from a seed, bfloat16
+     compute, B=1, T=32768), held against the same parameters run through
+     `ssm_apply`'s einsum route, with layer 0's kernel output held against
+     the plain version on that layer's own inputs;
+ 10. serving mamba2-370m through `repro_torch.launch.serve`: batch 8, Zipf
+     prompts of 2048 tokens, 64 greedy new tokens, the tokens held against
+     the teacher-forced forward's argmax (T = 2111, so the padding to a
+     chunk multiple runs) under the tie rule.
 
 Phases 2-4 are the three paths that run the EI/argmax kernel, phase 6 the
-path that runs the flash-attention kernel.  Each sets the launch counts to
-0 just before its run, reads them just after, and fails unless its kernel
-ran exactly once per fused BO step (phases 2-4) or once per layer of each
-forward (phase 6).  Serving runs no kernel, as in the reference (prefill
-and decode attend through the cache); phase 7 checks that too.
+path that runs the flash-attention kernel, phases 9 and 10 the paths that
+run the SSD kernel.  Each sets the launch counts to 0 just before its run,
+reads them just after, and fails unless its kernel ran exactly once per
+fused BO step (phases 2-4), once per layer of each forward (phases 6 and
+9), or once per layer of the prefill and never in a decode step (phase
+10).  Qwen3 serving runs no kernel, as in the reference (prefill and
+decode attend through the cache); phase 7 checks that too.
 
 A failed check fails the run: the script exits non-zero and prints no
 result.  It needs a CUDA card and the rest of the checkout; without either
@@ -864,7 +881,7 @@ def profile_summary(prof, calls: int, wall_ms: float, kernel_names=()) -> dict:
             "top_host_ops_ms": {name: ms for ms, name in host}}
 
 
-def forward_breakdown(fn) -> dict:
+def forward_breakdown(fn, kernel_names=FLASH_KERNEL_NAMES) -> dict:
     """One call of ``fn`` under `torch.profiler` (`profile_summary`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -875,7 +892,7 @@ def forward_breakdown(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    return profile_summary(prof, 1, wall, FLASH_KERNEL_NAMES)
+    return profile_summary(prof, 1, wall, kernel_names)
 
 
 # ---------------------------------------------------------------- phase 7
@@ -964,14 +981,14 @@ def phase_serve(dev, report) -> None:
     }
 
 
-def decode_breakdown(model, batch, steps: int = 8) -> dict:
+def decode_breakdown(model, batch, steps: int = 8, max_len: int = SERVE_MAX_LEN) -> dict:
     """Decode steps after a prefill, under `torch.profiler` (`profile_summary`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     b, t = batch["tokens"].shape
     with torch.inference_mode():
-        cache = model.init_cache(b, SERVE_MAX_LEN)
+        cache = model.init_cache(b, max_len)
         logits, cache = model.prefill(batch, cache)
         tok = logits[:, -1].argmax(-1)[:, None]
         model.decode_step(cache, tok, t)  # warm-up
@@ -984,6 +1001,380 @@ def decode_breakdown(model, batch, steps: int = 8) -> dict:
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / steps
     return profile_summary(prof, steps, wall)
+
+
+# ---------------------------------------------------------------- phase 8
+
+SSM_ARCH = "mamba2-370m"
+SSD_CASES = [  # (b, nc, q, h, p, n)
+    (1, 2, 8, 2, 16, 16),  # tests/test_kernels.py's four
+    (2, 2, 64, 4, 32, 32),
+    (1, 1, 128, 2, 64, 64),
+    (1, 1, 256, 1, 64, 128),
+    (2, 3, 8, 8, 16, 16),  # the smoke model's chunk: Q = 8, 8 heads of 16, state 16
+    (1, 2, 100, 3, 20, 24),  # ragged: Q, P and N off the kernel's tile multiples
+]
+# Kernel against plain version, as tests/test_kernels.py holds the TPU kernel
+# against its oracle: float32 products summed in another order.
+SSD_TOL = dict(rtol=1e-4, atol=1e-4)
+SSM_FWD_T = 32768  # the reference's prefill_32k sequence length, at batch 1
+SERVE_SSM_BATCH, SERVE_SSM_PROMPT, SERVE_SSM_NEW = 8, 2048, 64
+SSD_PATHS = {  # the kernel's (batch, sequence length) on each path that runs it
+    "ssm_forward": (1, SSM_FWD_T),
+    "ssm_serve": (SERVE_SSM_BATCH, SERVE_SSM_PROMPT),  # the prefill
+}
+SSD_KERNEL_NAMES = ("ssd_diag_kernel",)
+
+
+def ssd_path_shape(cfg, b: int, t: int) -> tuple:
+    """(b, nc, q, h, p, n) of the kernel's input for a (b, t) sequence batch."""
+    s = cfg.ssm
+    q = min(s.chunk_size, t)
+    return b, -(-t // q), q, s.num_heads(cfg.d_model), s.head_dim, s.d_state
+
+
+def ssd_inputs(dev, seed, b, nc, q, h, p, n, groups=None):
+    """x, dt, lA, B, C drawn on ``dev`` as tests/test_kernels.py draws them.
+    With ``groups``, B and C hold that many groups and reach the kernel as
+    head-broadcast views (stride 0 over the heads of a group), as
+    `ssd_chunked` passes them; otherwise they are head-expanded."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    x, dt, lA = randn(b, nc, q, h, p), F.softplus(randn(b, nc, q, h)), -F.softplus(randn(b, nc, q, h))
+    if groups is None:
+        return x, dt, lA, randn(b, nc, q, h, n), randn(b, nc, q, h, n)
+    rep = h // groups
+
+    def heads(a):  # (b, nc, q, G, n) -> (b, nc, q, h, n), group h // rep
+        return a[:, :, :, :, None].expand(b, nc, q, groups, rep, n).reshape(b, nc, q, h, n)
+
+    return x, dt, lA, heads(randn(b, nc, q, groups, n)), heads(randn(b, nc, q, groups, n))
+
+
+def ssd_bound(b, nc, q, h, p, n, groups) -> dict:
+    """Least time for one call of the intra-chunk term: x, dt, lA read and y
+    written once, B and C once per group, over HBM bandwidth; and the
+    operations the lower triangle needs, Q(Q+1)/2 pairs per (chunk, head),
+    each 2N for C.B, 2P for the weighted sum of x and 4 for the weight
+    (difference, exp, two products), over the FP32 peak: the inputs are
+    float32.  The bf16 tensor-core figure is printed beside it."""
+    cells = b * nc * h
+    flops = cells * (q * (q + 1) // 2) * (2 * n + 2 * p + 4)
+    nbytes = 4 * (2 * cells * q * p + 2 * cells * q + 2 * b * nc * q * groups * n)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_PER_S * 1e3
+    return {"bytes": nbytes, "flops": flops,
+            "flops_full": cells * q * q * (2 * n + 2 * p + 4),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes_ms": t_bytes,
+            "bound_bf16_ms": max(t_bytes, flops / PEAK_BF16_PER_S * 1e3)}
+
+
+def phase_ssd(dev, report) -> dict:
+    import torch
+
+    from repro_torch import configs as C
+    from repro_torch.kernels.ssd.ops import ssd_diag_chunk, ssd_diag_plain
+    from repro_torch.testing import assert_close
+
+    print(f"phase 8: SSD intra-chunk kernel vs plain version on the card ({SSD_TOL})")
+    cfg = C.get(SSM_ARCH).model
+    errs = {}
+
+    def check(name, args):
+        out = ssd_diag_chunk(*args)
+        plain = ssd_diag_plain(*args)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"non-finite kernel output at {name}")
+        errs[name] = assert_close(plain.cpu().numpy(), out.cpu().numpy(), **SSD_TOL, what=name)
+        print(f"  {name:62s} max |kernel - plain| {errs[name]:.3e}")
+
+    times = {}
+    with torch.inference_mode():
+        for i, shape in enumerate(SSD_CASES):
+            check("b={} nc={} q={} h={} p={} n={}".format(*shape), ssd_inputs(dev, 200 + i, *shape))
+        for path, (b, t) in SSD_PATHS.items():
+            shape = ssd_path_shape(cfg, b, t)
+            g = cfg.ssm.n_groups
+            args = ssd_inputs(dev, 9, *shape, groups=g)
+            name = "{} (BC,Q,H,P,N) = ({},{},{},{},{}), G={}".format(
+                path, shape[0] * shape[1], *shape[2:], g)
+            check(name, args)
+            ms = cuda_time_ms(lambda: ssd_diag_chunk(*args), reps=20)
+            plain_ms = cuda_time_ms(lambda: ssd_diag_plain(*args), reps=3)
+            k_dev = graph_ms(lambda: ssd_diag_chunk(*args))
+            p_dev = graph_ms(lambda: ssd_diag_plain(*args), calls=1, reps=3)
+            bound = ssd_bound(*shape, g)
+            print(f"  time at the {path} shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA "
+                  f"events around one call, median of 20 and 3); device time per call (CUDA "
+                  f"graph replay): kernel {k_dev:.4f} ms, plain {p_dev:.4f} ms; bound "
+                  f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, FP32 peak; bytes alone "
+                  f"{bound['bound_bytes_ms']:.4f} ms; {bound['bound_bf16_ms']:.4f} ms at the bf16 "
+                  f"tensor peak; {bound['bytes']} B, {bound['flops']} flop, "
+                  f"{bound['flops_full']} flop for full Q x Q)")
+            times[path] = dict(shape=name.split(" ", 1)[1], max_abs_err=errs[name], ms=ms,
+                               plain_ms=plain_ms, device_ms=k_dev, plain_device_ms=p_dev, **bound)
+            del args
+    report["ssd"] = {"case_errs": errs, "paths": times}
+    return times
+
+
+# ---------------------------------------------------------------- phase 9
+
+SSM_FWD_CALLS = 2  # teacher-forced forwards in the counted run
+# Kernel route against the einsum route (`ssm_apply`'s default), bfloat16
+# compute, 48 layers.  Both compute the intra-chunk term in float32, in
+# another order; where that moves a value across a bfloat16 rounding
+# boundary the step propagates through every later layer.  On the CPU, at
+# 48 layers of d_model 1024 (vocab cut to 4096, T 1024 and 2048), the
+# logits of the two routes differ by 2.7-2.8 % RMS and at most 0.104
+# (logits of RMS 0.64); in float32 compute by 4e-6 RMS.  Allow 2^-4 RMS and
+# 2^-1 at any logit, over 2x and 4x those, for the 1.6e9 logits here.
+SSM_FORWARD_RMS_REL = 2.0**-4
+SSM_FORWARD_MAX_ABS = 2.0**-1
+
+
+def einsum_route(model, tokens):
+    """The model's parameters through `ssm_apply` at its default
+    (``use_kernel=False``: the einsum oracle for the intra-chunk term), layer
+    by layer: the route the reference's `Model` takes."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+
+    cfg, params = model.cfg, model.params_tree()
+    x = L.embed_apply(params["embed"], cfg, tokens)
+    for p in params["layers"]:
+        out, _ = S.ssm_apply(p["ssm"], cfg, L.norm_apply(p["norm"], cfg, x))
+        x = x + out
+    return model._final_logits(params, x)
+
+
+def phase_ssm_forward(dev, report) -> int:
+    import torch
+
+    from repro_torch import configs as C
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels.ssd.kernel import ssd_diag_cuda
+    from repro_torch.kernels.ssd.ops import ssd_diag_chunk, ssd_diag_plain
+    from repro_torch.models import ssm as S
+    from repro_torch.models.model import Model
+    from repro_torch.testing import assert_close
+
+    cfg = C.get(SSM_ARCH).model
+    s = cfg.ssm
+    b, t = 1, SSM_FWD_T
+    print(f"phase 9: {SSM_ARCH} teacher-forced forward, {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {s.num_heads(cfg.d_model)} SSD heads of {s.head_dim}, state "
+          f"{s.d_state}, chunk {s.chunk_size}, vocab {cfg.vocab_size}, {cfg.param_dtype} params, "
+          f"{cfg.compute_dtype} compute, B={b} T={t}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  {n_params} parameters drawn on the card in {init_s:.2f} s "
+          f"({torch.cuda.memory_allocated() / 1e9:.2f} GB)")
+    if n_params != model.total_params():
+        raise AssertionError(f"{n_params} parameters, the spec says {model.total_params()}")
+    batch = {"tokens": torch.as_tensor(make_batch(cfg, b, t, seed=0)["tokens"], device=dev)}
+
+    captured = []  # layer 0's kernel inputs and output, taken on their way through
+
+    def capture(*args):
+        out = ssd_diag_chunk(*args)
+        if not captured:
+            captured.append((args, out))
+        return out
+
+    walls = []
+    with torch.inference_mode():
+        S.ssd_diag_chunk = capture
+        try:
+            ssd_diag_cuda.launches = 0
+            for _ in range(SSM_FWD_CALLS):
+                t0 = time.perf_counter()
+                logits, _ = model.forward(batch)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            launches = ssd_diag_cuda.launches
+        finally:
+            S.ssd_diag_chunk = ssd_diag_chunk
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  SSD kernel launches {launches} over {SSM_FWD_CALLS} forwards of "
+              f"{cfg.num_layers} layers; forward wall {walls[0]:.1f} ms (first), "
+              f"{walls[1]:.1f} ms (second); peak allocated {peak / 1e9:.2f} GB")
+        if launches != SSM_FWD_CALLS * cfg.num_layers:
+            raise AssertionError(f"SSD kernel launched {launches} times in {SSM_FWD_CALLS} "
+                                 f"forwards of {cfg.num_layers} layers")
+        if tuple(logits.shape) != (b, t, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"forward logits of shape {tuple(logits.shape)} not finite")
+
+        args, out = captured[0]
+        captured.clear()
+        plain = ssd_diag_plain(*args)
+        err0 = assert_close(plain.cpu().numpy(), out.cpu().numpy(), **SSD_TOL,
+                            what="layer 0 kernel vs plain")
+        print(f"  layer 0: x {tuple(args[0].shape)}, B {tuple(args[3].shape)} with strides "
+              f"{args[3].stride()}; max |kernel - plain| {err0:.3e} on that layer's own inputs "
+              f"(outputs up to {float(out.abs().max()):.3f})")
+        del args, out, plain
+
+        fwd_ms = cuda_time_ms(lambda: model.forward(batch), reps=3, warmup=0)
+        with_prof = forward_breakdown(lambda: model.forward(batch), SSD_KERNEL_NAMES)
+
+        ref_logits = einsum_route(model, batch["tokens"])
+        ref_ms = cuda_time_ms(lambda: einsum_route(model, batch["tokens"]), reps=2, warmup=0)
+        diff = logits - ref_logits
+        rms_rel = float(diff.square().mean().sqrt() / ref_logits.square().mean().sqrt())
+        max_abs = float(diff.abs().max())
+        agree = float((logits.argmax(-1) == ref_logits.argmax(-1)).float().mean())
+        del diff, ref_logits
+    print(f"  forward {fwd_ms:.1f} ms by CUDA events (median of 3), einsum route {ref_ms:.1f} ms "
+          f"(median of 2); kernel vs einsum route logits: RMS {rms_rel:.3e} of the einsum "
+          f"logits' RMS (limit {SSM_FORWARD_RMS_REL}), max |diff| {max_abs:.4f} (limit "
+          f"{SSM_FORWARD_MAX_ABS}), argmax agrees at {agree:.4f} of positions")
+    print(f"  profiled forward: wall {with_prof['wall_ms']:.1f} ms, device busy "
+          f"{with_prof['device_busy_ms']:.1f} ms, SSD kernel {with_prof['kernel_ms']:.2f} ms "
+          f"({with_prof['kernel_share']:.3f} of device time; "
+          f"{with_prof['kernel_ms'] / cfg.num_layers:.4f} ms per launch), idle share "
+          f"{with_prof['idle_share']:.3f}, {with_prof['device_kernels']:.0f} device kernels")
+    for name, ms in with_prof["top_kernels_ms"].items():
+        print(f"    device {ms:.3f} ms  {name}")
+    for name, ms in with_prof["top_host_ops_ms"].items():
+        print(f"    host   {ms:.3f} ms  {name}")
+    if rms_rel > SSM_FORWARD_RMS_REL or max_abs > SSM_FORWARD_MAX_ABS:
+        raise AssertionError("kernel route and einsum route disagree beyond the stated tolerance")
+    report["ssm_forward"] = {
+        "params": n_params, "init_s": init_s, "launches": launches,
+        "forward_calls": SSM_FWD_CALLS, "wall_ms": walls, "events_ms": fwd_ms,
+        "einsum_events_ms": ref_ms, "peak_bytes": int(peak), "layer0_err": err0,
+        "rms_rel": rms_rel, "max_abs": max_abs, "argmax_agree": agree, "breakdown": with_prof,
+    }
+    return launches
+
+
+# ---------------------------------------------------------------- phase 10
+
+# The served tokens against the argmax of a teacher-forced forward over the
+# prompt and those tokens: the served path carries the state through the
+# recurrent decode step, the forward recomputes it chunk by chunk, both in
+# bfloat16, and a float32 difference that moves a value across a bfloat16
+# rounding boundary propagates through the later layers.  On the CPU, at
+# full width (vocab cut to 4096, batch 2, 512-token prompts, 16 steps), the
+# served logits differ from the forward's by 0.017 RMS and at most 0.103
+# (logits of RMS 0.64), and the argmax differs at 3 % of the steps, so most
+# rows of 64 steps are expected to end at a tie.  A differing token must be
+# a certified tie: its logit within 2^-3 of the forward's largest (any other
+# difference raises); ties are reported, with the steps compared before them.
+# Since a tie ends a row's comparison, every step is also held by its
+# logits: the served path re-run over the served tokens (prefill, then the
+# decode steps) against the forward's logits at the same positions, within
+# phase 9's limits (2^-4 RMS, 2^-1 at any logit; the CPU case above is
+# 2.7 % RMS, 0.103 at most).
+
+
+def phase_ssm_serve(dev, report) -> int:
+    import torch
+
+    from repro_torch.kernels.ei_argmax.kernel import ei_argmax_cuda
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.ssd.kernel import ssd_diag_cuda
+    from repro_torch.launch import serve
+    from repro_torch.testing import compare_token_traces
+
+    max_len = SERVE_SSM_PROMPT + SERVE_SSM_NEW  # sizes no SSM state: O(1) in length
+    print(f"phase 10: serving {SSM_ARCH} through repro_torch.launch.serve: batch "
+          f"{SERVE_SSM_BATCH}, Zipf prompts of {SERVE_SSM_PROMPT} tokens, {SERVE_SSM_NEW} greedy "
+          f"new tokens")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = serve.build_model(SSM_ARCH, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"  model built and its projections cast to {model.cfg.compute_dtype} in "
+          f"{time.perf_counter() - t0:.2f} s ({torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"resident)")
+    loop = serve.serve_loop(model, SERVE_SSM_BATCH, max_len)
+    batch = serve.requests(model, SERVE_SSM_BATCH, SERVE_SSM_PROMPT, seed=0)
+    loop.generate(batch, 4)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ssd_diag_cuda.launches = flash_attention_cuda.launches = ei_argmax_cuda.launches = 0
+    out = loop.generate(batch, SERVE_SSM_NEW, echo_metrics=True)
+    launches = ssd_diag_cuda.launches
+    others = (flash_attention_cuda.launches, ei_argmax_cuda.launches)
+    peak = torch.cuda.max_memory_allocated()
+    m = out["metrics"]
+    tokens = out["tokens"]
+    steps = m["decoded"] - 1
+    step_ms = m["decode_s"] * 1e3 / max(steps, 1)
+    print(f"  prefill {m['prefill_s'] * 1e3:.1f} ms, decode {step_ms:.2f} ms per step "
+          f"({steps} steps), {m['tokens_per_s']:.1f} tokens/s; peak allocated "
+          f"{peak / 1e9:.2f} GB")
+    print(f"  kernel launches while serving: SSD {launches} (one prefill of "
+          f"{model.cfg.num_layers} layers, {steps} decode steps), flash {others[0]}, ei_argmax "
+          f"{others[1]}")
+    if launches != model.cfg.num_layers or others != (0, 0):
+        raise AssertionError(f"serving launched SSD {launches} times (want one per layer of "
+                             f"the prefill, none per decode step) and {others} others")
+    if tokens.shape != (SERVE_SSM_BATCH, SERVE_SSM_NEW):
+        raise AssertionError(f"served tokens of shape {tokens.shape}")
+
+    with torch.inference_mode():
+        seq = torch.cat([batch["tokens"].long(),
+                         torch.as_tensor(tokens[:, :-1], device=dev).long()], 1)
+        logits, _ = model.forward({"tokens": seq})
+        logits = logits[:, SERVE_SSM_PROMPT - 1:].clone()
+        ref_tokens = logits.argmax(-1).cpu().numpy()
+        ref_logits = logits.cpu().numpy()
+        cache = model.init_cache(SERVE_SSM_BATCH, max_len)
+        served = [model.prefill(batch, cache)[0]]
+        for i in range(SERVE_SSM_NEW - 1):
+            pos = SERVE_SSM_PROMPT + i
+            served.append(model.decode_step(cache, seq[:, pos:pos + 1], pos)[0])
+        diff = torch.cat(served, 1) - logits
+        rms_rel = float(diff.square().mean().sqrt() / logits.square().mean().sqrt())
+        max_abs = float(diff.abs().max())
+        del logits, served, diff
+    print(f"  served path's logits over the served tokens vs the forward's: RMS {rms_rel:.3e} of "
+          f"the forward logits' RMS (limit {SSM_FORWARD_RMS_REL}), max |diff| {max_abs:.4f} "
+          f"(limit {SSM_FORWARD_MAX_ABS})")
+    if rms_rel > SSM_FORWARD_RMS_REL or max_abs > SSM_FORWARD_MAX_ABS:
+        raise AssertionError("served logits and forward logits disagree beyond the stated "
+                             "tolerance")
+    cmp = compare_token_traces(ref_tokens, tokens, ref_logits, atol=SERVE_TIE_ATOL)
+    compared = cmp.matched * SERVE_SSM_NEW + sum(n for _, n, _ in cmp.ties)
+    print(f"  served tokens vs the teacher-forced forward's argmax (T = {seq.shape[1]}, padded to "
+          f"a chunk multiple): {cmp.matched} of {SERVE_SSM_BATCH} rows match in full, "
+          f"{len(cmp.ties)} end at a certified tie (within {SERVE_TIE_ATOL}; reported, not "
+          f"counted as matches); {compared} of {tokens.size} steps equal before any tie")
+    for b, n, detail in cmp.ties:
+        print(f"    tie: row {b} step {n}: {detail}")
+    prof = decode_breakdown(model, batch, max_len=max_len)
+    print(f"  profiled decode step: wall {prof['wall_ms']:.2f} ms, device busy "
+          f"{prof['device_busy_ms']:.2f} ms (idle share {prof['idle_share']:.3f}), "
+          f"{prof['device_kernels']} kernels per step")
+    for name, ms in prof["top_kernels_ms"].items():
+        print(f"    device {ms:.3f} ms  {name}")
+    for name, ms in prof["top_host_ops_ms"].items():
+        print(f"    host   {ms:.3f} ms  {name}")
+    report["ssm_serve"] = {
+        "decode_breakdown": prof,
+        "prefill_ms": m["prefill_s"] * 1e3, "decode_ms_per_step": step_ms,
+        "tokens_per_s": m["tokens_per_s"], "decoded": m["decoded"], "peak_bytes": int(peak),
+        "full_matches": cmp.matched, "ties": [list(t) for t in cmp.ties],
+        "steps_equal": compared, "logits_rms_rel": rms_rel, "logits_max_abs": max_abs,
+        "launches": {"ssd_diag": launches, "flash_attention": others[0], "ei_argmax": others[1]},
+    }
+    return launches
 
 
 # ---------------------------------------------------------------- main
@@ -1004,6 +1395,7 @@ def main(argv=None) -> int:
         from repro_torch.kernels import build
         from repro_torch.kernels.ei_argmax import kernel as ei_kernel
         from repro_torch.kernels.flash_attention import kernel as fa_kernel
+        from repro_torch.kernels.ssd import kernel as ssd_kernel
     except ImportError as e:
         print(f"chip_smoke: the port is not next to this script ({e})", file=sys.stderr)
         return 2
@@ -1013,21 +1405,23 @@ def main(argv=None) -> int:
     print(f"phase 0: card {card}; torch {torch.__version__} CUDA {torch.version.cuda}; "
           f"allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
-        for f in [pool.submit(m.load) for m in (ei_kernel, fa_kernel)]:
+    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, started together
+        for f in [pool.submit(m.load) for m in (ei_kernel, fa_kernel, ssd_kernel)]:
             f.result()
-    print(f"  ei_argmax and flash_attention kernels built and loaded in "
+    print(f"  ei_argmax, flash_attention and ssd kernels built and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
-    for name in ("ei_argmax", "flash_attention"):
+    for name in ("ei_argmax", "flash_attention", "ssd"):
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "built in" in line:
                 print(f"    {name}: {line.strip()}")
     print(f"    flash_attention: {fa_kernel.load().flash_attention_smem_bytes(FWD_SHAPE[4])} "
           f"bytes of dynamic shared memory per block at D={FWD_SHAPE[4]}")
+    print(f"    ssd: {ssd_kernel.load().ssd_diag_smem_bytes(ssd_kernel.MAX_N)} bytes of dynamic "
+          f"shared memory per block at N={ssd_kernel.MAX_N}")
 
     report = {"card": card}
     failed = []
-    times, fa_times, launches = None, None, {}
+    times, fa_times, ssd_times, launches = None, None, None, {}
     for name, phase in (
         ("kernel", lambda: phase_kernel(dev, report)),
         ("pipeline", lambda: phase_pipeline(dev, SEEDS, report)),
@@ -1036,6 +1430,9 @@ def main(argv=None) -> int:
         ("flash", lambda: phase_flash(dev, report)),
         ("forward", lambda: phase_forward(dev, report)),
         ("serve", lambda: phase_serve(dev, report)),
+        ("ssd", lambda: phase_ssd(dev, report)),
+        ("ssm_forward", lambda: phase_ssm_forward(dev, report)),
+        ("ssm_serve", lambda: phase_ssm_serve(dev, report)),
     ):
         try:
             out = phase()
@@ -1050,6 +1447,8 @@ def main(argv=None) -> int:
             times = out
         elif name == "flash":
             fa_times = out
+        elif name == "ssd":
+            ssd_times = out
         elif name != "serve":
             launches[name] = out
     if args.out is not None:
@@ -1096,6 +1495,23 @@ def main(argv=None) -> int:
         "library_ms": fa_times["library_ms"],  # scaled_dot_product_attention
         "library_device_ms": fa_times["library_device_ms"],
     })
+    kernels.extend({
+        "name": "ssd_diag",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd/ssd.py:59",
+        "path": path,
+        "shape": t["shape"],
+        "launches": launches[path],
+        "max_abs_err": t["max_abs_err"],
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "device_ms": t["device_ms"],
+        "plain_device_ms": t["plain_device_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes this function
+    } for path, t in ssd_times.items())
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,17 +9,16 @@ from __future__ import annotations
 
 from typing import Dict, List
 
-from repro_torch.configs import qwen3_8b
+from repro_torch.configs import mamba2_370m, qwen3_8b
 from repro_torch.configs.base import ArchSpec, ExecConfig, smoke_variant
 
 __all__ = ["ARCHS", "ArchSpec", "ExecConfig", "REGISTRY", "get", "smoke", "smoke_variant"]
 
-REGISTRY: Dict[str, ArchSpec] = {m.SPEC.name: m.SPEC for m in (qwen3_8b,)}
+REGISTRY: Dict[str, ArchSpec] = {m.SPEC.name: m.SPEC for m in (qwen3_8b, mamba2_370m)}
 ARCHS: List[str] = list(REGISTRY)
 
 # The reference's other architectures, and the ROADMAP Queue 1 item that ports each.
 NOT_YET_PORTED: Dict[str, str] = {
-    "mamba2-370m": "item 8 (SSM family, with the SSD kernel)",
     "granite-8b": "item 11 (the other dense architectures)",
     "granite-34b": "item 11 (the other dense architectures)",
     "qwen1.5-32b": "item 11 (the other dense architectures)",

@@ -1,13 +1,16 @@
 """Serving from the command line (port of `repro/launch/serve.py`).
 
     python -m repro_torch.launch.serve --arch qwen3-8b [--smoke] [--device cpu]
+    python -m repro_torch.launch.serve --arch mamba2-370m [--smoke] [--device cpu]
 
 Builds the model with random weights drawn from ``--seed`` on the device
 (the card unless ``--device cpu``), then prefills a batch of Zipf prompts
 from `data.make_batch` and decodes greedily, reporting prefill latency and
-decode throughput.  For serving, the model's matrices are cast to the
-compute dtype once, in place (`Model.cast_weights_`): the same numbers as
-a cast at every use, and half the memory of the float32 parameters.
+decode throughput.  For serving, the weights the model reads only in the
+compute dtype are cast to it once, in place (`Model.cast_weights_`): the
+same numbers as a cast at every use, and half the memory of float32.
+``--max-len`` sizes the dense family's KV cache; an SSM's state is O(1) in
+sequence length.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ __all__ = ["build_model", "main", "requests", "serve_loop"]
 def build_model(arch: str, *, smoke: bool = False, seed: int = 0,
                 device: DeviceLike = None) -> Model:
     """The architecture's model with random weights from ``seed``, drawn on
-    ``device``, its matrices cast to the compute dtype for serving."""
+    ``device``, cast for serving (`Model.cast_weights_`)."""
     spec = C.smoke(arch) if smoke else C.get(arch)
     return Model(spec.model, device=device, seed=seed).cast_weights_()
 

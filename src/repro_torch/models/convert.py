@@ -28,9 +28,10 @@ def _tensor(a: Any) -> torch.Tensor:
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
     """The port's parameter tree (CPU tensors) for the reference's ``tree``
-    of a dense model: ``embed`` and ``final_norm`` as they are, ``layers``
-    split into ``cfg.num_layers`` per-layer dicts.  `models.model.Model`
-    checks the names and shapes when it takes the tree."""
+    of a dense or SSM model: ``embed`` and ``final_norm`` as they are,
+    ``layers`` (``attn``/``mlp`` blocks, or ``norm``/``ssm``) split into
+    ``cfg.num_layers`` per-layer dicts.  `models.model.Model` checks the
+    names and shapes when it takes the tree."""
     n = cfg.num_layers
     stacked = tree_map(_tensor, tree["layers"])
     for name, leaf in leaves(stacked):

@@ -1,14 +1,17 @@
-"""The model facade (port of `repro/models/model.py`) for the dense family.
+"""The model facade (port of `repro/models/model.py`) for the dense and SSM families.
 
 `Model(cfg)` is an `nn.Module` that owns the parameters.  Their names
 mirror the reference's tree, with the stacked "layers" axis held apart:
 the reference's ``params["layers"]["attn"]["wq"][i]`` is the port's
-``layers.{i}.attn.wq``.  The entry points are the reference's:
+``layers.{i}.attn.wq`` (for the SSM family, ``layers.{i}.norm.*`` and
+``layers.{i}.ssm.*``).  The entry points are the reference's:
 
   * ``param_specs()``                the stacked TensorSpec tree, as the reference's
   * ``forward(batch)``               teacher-forced logits (f32) and aux loss
   * ``loss_fn(batch)``               shifted cross-entropy + z-loss + aux
-  * ``cache_specs(batch, max_len)``  / ``init_cache(...)``: the stacked KV cache
+  * ``cache_specs(batch, max_len)``  / ``init_cache(...)``: the stacked KV
+                                     cache, or for the SSM family the recurrent
+                                     state (O(1) in length: ``max_len`` unused)
   * ``prefill(batch, cache)``        fill the cache from 0, last-position logits
   * ``decode_step(cache, tokens, index)``
 
@@ -17,8 +20,14 @@ reference's functional form); by default the module's own.  The cache is
 updated in place and returned.  Batches are ``{"tokens": (B,T) ints}``
 (numpy or torch), with an optional ``loss_mask``.
 
-The other families (moe, ssm, hybrid, encdec, vlm) and learned position
-tables are not ported yet and raise (ROADMAP Queue 1 items 8 and 11).
+The SSM family's forward and prefill send every chunked SSD call to the
+SSD kernel (``use_kernel=True``): the reference's `Model` leaves
+`ssm_apply` at its einsum default, and its kernel is reached only by
+calling `ssd_chunked(use_kernel=True)` directly; the two routes compute
+the same function (ROADMAP Queue 3).  Decode (T = 1) is the recurrent
+step, which has no kernel.  The other families (moe, hybrid, encdec, vlm)
+and learned position tables are not ported yet and raise (ROADMAP Queue 1
+item 11).
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.spec import TensorSpec, count_params, init_tree, leaves, tree_map
@@ -43,32 +53,49 @@ def total_params(cfg: ModelConfig) -> int:
     return count_params(_param_specs(cfg))
 
 
+# The weights the reference reads only in the compute dtype (``.astype(cd)``
+# at every use, or the embedding's gather-then-cast): `Model.cast_weights_`
+# casts these and no others.  The SSM's conv taps are read in float32.
+_COMPUTE_DTYPE_WEIGHTS = frozenset({
+    "embedding", "unembed",
+    "wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo",  # attention
+    "wi", "wi_gate", "wi_up", "bi",  # MLP ("wo", "bo" as above)
+    "wz", "wx", "wB", "wC", "wdt", "out_proj",  # SSM
+})
+
+
 def _check_ported(cfg: ModelConfig) -> None:
     cfg.validate()
-    if cfg.family != "dense":
-        item = "item 8" if cfg.family == "ssm" else "item 11"
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 {item})")
+            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 11)")
     if cfg.pos_emb == "learned":
         raise NotImplementedError(
             "learned position tables are not ported yet (ROADMAP Queue 1 item 11)")
 
 
+def _layer_specs(cfg: ModelConfig) -> Tree:
+    """One layer's parameter tree."""
+    if cfg.family == "ssm":
+        return {"norm": L.norm_specs(cfg), "ssm": S.ssm_specs(cfg)}
+    return T.block_specs(cfg)
+
+
 def _param_specs(cfg: ModelConfig) -> Tree:
     _check_ported(cfg)
-    return {
-        "embed": L.embedding_specs(cfg),
-        "layers": T.decoder_stack_specs(cfg),
-        "final_norm": L.norm_specs(cfg),
-    }
+    if cfg.family == "ssm":
+        layers = T.stack_specs(_layer_specs(cfg), cfg.num_layers)
+    else:
+        layers = T.decoder_stack_specs(cfg)
+    return {"embed": L.embedding_specs(cfg), "layers": layers, "final_norm": L.norm_specs(cfg)}
 
 
 def _unstacked_specs(cfg: ModelConfig) -> Tree:
-    """The port's own parameter tree: one block dict per layer."""
+    """The port's own parameter tree: one layer dict per layer."""
     _check_ported(cfg)
     return {
         "embed": L.embedding_specs(cfg),
-        "layers": [T.block_specs(cfg) for _ in range(cfg.num_layers)],
+        "layers": [_layer_specs(cfg) for _ in range(cfg.num_layers)],
         "final_norm": L.norm_specs(cfg),
     }
 
@@ -91,7 +118,7 @@ def _as_tree(m: nn.Module) -> Any:
 
 
 class Model(nn.Module):
-    """A dense decoder-only model with its parameters.
+    """A dense or SSM decoder-only model with its parameters.
 
     ``params``: a tree like `params_tree` gives (e.g. from
     `convert.params_from_jax`), moved to ``device``; otherwise the spec's
@@ -142,12 +169,13 @@ class Model(nn.Module):
     @torch.no_grad()
     def cast_weights_(self) -> "Model":
         """Cast, in place, every weight the model only ever reads in the
-        compute dtype (the matrices) to that dtype.  The outputs stay the
-        same numbers, each forward skips its per-use casts, and the matrices
-        take half the memory of float32.  Norm scales stay in their dtype:
-        they are read in float32."""
-        for p in self.parameters():
-            if p.dim() >= 2:
+        compute dtype (`_COMPUTE_DTYPE_WEIGHTS`: the projections and the
+        embedding) to that dtype.  The outputs stay the same numbers, each
+        forward skips its per-use casts, and those weights take half the
+        memory of float32.  The rest stay in their dtype: norm scales, the
+        SSM's conv taps, decay rates and skip weights are read in float32."""
+        for name, p in self.named_parameters():
+            if name.rsplit(".", 1)[-1] in _COMPUTE_DTYPE_WEIGHTS:
                 p.data = p.data.to(self.cfg.cdtype)
         return self
 
@@ -168,10 +196,22 @@ class Model(nn.Module):
         params = params or self.params_tree()
         tokens = self._tokens(batch["tokens"])
         b, t = tokens.shape
-        positions = torch.arange(t, device=tokens.device)[None, :].expand(b, t)
         x = L.embed_apply(params["embed"], self.cfg, tokens)
-        h, aux, _ = T.decoder_stack_apply(params["layers"], self.cfg, x, positions=positions)
+        if self.cfg.family == "ssm":
+            h = self._ssm_forward(params, x)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        else:
+            positions = torch.arange(t, device=tokens.device)[None, :].expand(b, t)
+            h, aux, _ = T.decoder_stack_apply(params["layers"], self.cfg, x,
+                                              positions=positions)
         return self._final_logits(params, h), aux
+
+    def _ssm_forward(self, params: Tree, x: torch.Tensor) -> torch.Tensor:
+        for p in params["layers"]:
+            hn = L.norm_apply(p["norm"], self.cfg, x)
+            out, _ = S.ssm_apply(p["ssm"], self.cfg, hn, use_kernel=True)
+            x = x + out
+        return x
 
     def loss_fn(self, batch: Dict[str, Any],
                 params: Optional[Tree] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -197,6 +237,8 @@ class Model(nn.Module):
     # -- decode cache ----------------------------------------------------------
 
     def cache_specs(self, batch: int, max_len: int) -> Dict[str, TensorSpec]:
+        if self.cfg.family == "ssm":
+            return S.ssm_state_specs(self.cfg, batch, self.cfg.num_layers)
         return L.init_kv_cache_specs(self.cfg, batch, max_len, self.cfg.num_layers)
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
@@ -210,13 +252,30 @@ class Model(nn.Module):
         """Consume tokens at [index, index+T), writing the cache in place."""
         tokens = self._tokens(tokens)
         b, t = tokens.shape
-        positions = (index + torch.arange(t, device=tokens.device))[None, :].expand(b, t)
         x = L.embed_apply(params["embed"], self.cfg, tokens)
-        h, _, _ = T.decoder_stack_apply(params["layers"], self.cfg, x, positions=positions,
-                                        caches=cache, cache_index=index)
+        if self.cfg.family == "ssm":
+            h = self._ssm_pass(params, x, cache)
+        else:
+            positions = (index + torch.arange(t, device=tokens.device))[None, :].expand(b, t)
+            h, _, _ = T.decoder_stack_apply(params["layers"], self.cfg, x,
+                                            positions=positions, caches=cache,
+                                            cache_index=index)
         if last_only:  # the unembedding is per position: only the last one is kept
             h = h[:, -1:]
         return self._final_logits(params, h)
+
+    def _ssm_pass(self, params: Tree, x: torch.Tensor,
+                  cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Run the SSM layers from the cached state; each layer writes its
+        slice of the stacked state in place."""
+        for i, p in enumerate(params["layers"]):
+            hn = L.norm_apply(p["norm"], self.cfg, x)
+            out, new = S.ssm_apply(p["ssm"], self.cfg, hn, use_kernel=True,
+                                   state={"ssd": cache["ssd"][i], "conv": cache["conv"][i]})
+            x = x + out
+            cache["ssd"][i].copy_(new["ssd"])
+            cache["conv"][i].copy_(new["conv"])
+        return x
 
     def prefill(self, batch: Dict[str, Any], cache: Dict[str, torch.Tensor],
                 params: Optional[Tree] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

@@ -6,7 +6,7 @@ and scans one compiled body over it.  The port keeps the stacked spec tree
 with the reference) but holds the layers apart, as a list of per-layer
 dicts, and runs them in a Python loop (`decoder_stack_apply`).  Remat is a
 training concern and comes with the training slice (ROADMAP Queue 1
-item 9); MoE blocks and the encoder stack come with item 11.
+item 10); MoE blocks and the encoder stack come with item 11.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 ``prefill_step(params, batch, cache)`` and ``decode_step(params, cache,
 tokens, index)`` keep the reference's signatures; ``params`` is a tree like
 `Model.params_tree` gives.  `make_train_step` comes with the training slice
-(ROADMAP Queue 1 item 9).
+(ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations

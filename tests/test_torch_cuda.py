@@ -22,6 +22,8 @@ from repro_torch.kernels.ei_argmax.tile import ei_from_sqdist
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.ssd import kernel as ssd_kernel
+from repro_torch.kernels.ssd.ops import ssd_diag_chunk, ssd_diag_plain
 from repro_torch.testing import EI_ATOL, EI_RTOL, assert_close, pick_agrees
 
 pytestmark = pytest.mark.cuda
@@ -171,3 +173,84 @@ def test_model_forward_launches_flash_once_per_layer(dev):
         model.decode_step(cache, tokens[:, :1], 256)
         assert fa_kernel.flash_attention_cuda.launches == before + cfg.num_layers
     assert_close(ref.cpu().numpy(), logits.cpu().numpy(), rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------- SSD intra-chunk (K3)
+
+SSD_SHAPES = [  # (b, nc, q, h, p, n): tests/test_kernels.py's four, ragged, smoke model
+    (1, 2, 8, 2, 16, 16),
+    (2, 2, 64, 4, 32, 32),
+    (1, 1, 128, 2, 64, 64),
+    (1, 1, 256, 1, 64, 128),
+    (1, 2, 100, 3, 20, 24),
+    (2, 3, 8, 8, 16, 16),
+]
+SSD_TOL = dict(rtol=1e-4, atol=1e-4)  # tests/test_kernels.py's limits for the TPU kernel
+
+
+def ssd_inputs(dev, seed, b, nc, q, h, p, n):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, nc, q, h, p), generator=g, device=dev)
+    dt = torch.nn.functional.softplus(torch.randn((b, nc, q, h), generator=g, device=dev))
+    lA = -torch.nn.functional.softplus(torch.randn((b, nc, q, h), generator=g, device=dev))
+    B_ = torch.randn((b, nc, q, h, n), generator=g, device=dev)
+    C_ = torch.randn((b, nc, q, h, n), generator=g, device=dev)
+    return x, dt, lA, B_, C_
+
+
+@pytest.mark.parametrize("b,nc,q,h,p,n", SSD_SHAPES)
+def test_ssd_kernel_matches_plain_version(dev, b, nc, q, h, p, n):
+    args = ssd_inputs(dev, q * h + n, b, nc, q, h, p, n)
+    before = ssd_kernel.ssd_diag_cuda.launches
+    out = ssd_diag_chunk(*args)
+    plain = ssd_diag_plain(*args)
+    torch.cuda.synchronize()
+    assert ssd_kernel.ssd_diag_cuda.launches == before + 1
+    assert out.shape == (b, nc, q, h, p) and bool(torch.isfinite(out).all())
+    assert_close(plain.cpu().numpy(), out.cpu().numpy(), **SSD_TOL, what="kernel vs plain")
+
+
+def test_ssd_kernel_reads_head_broadcast_views(dev):
+    """B and C shared by every head, as a stride-0 view: the same result as
+    their copies, nothing copied on the way."""
+    x, dt, lA, B_, C_ = ssd_inputs(dev, 3, 1, 4, 256, 32, 64, 128)
+    Bg, Cg = B_[:, :, :, :1], C_[:, :, :, :1]
+    view = ssd_diag_chunk(x, dt, lA, Bg.expand_as(B_), Cg.expand_as(C_))
+    copy = ssd_diag_chunk(x, dt, lA, Bg.expand_as(B_).contiguous(), Cg.expand_as(C_).contiguous())
+    assert torch.equal(view, copy)
+    assert_close(ssd_diag_plain(x, dt, lA, Bg.expand_as(B_), Cg.expand_as(C_)).cpu().numpy(),
+                 view.cpu().numpy(), **SSD_TOL)
+
+
+def test_ssd_kernel_rejects_what_it_cannot_take(dev):
+    x, dt, lA, B_, C_ = (a[0] for a in ssd_inputs(dev, 0, 1, 1, 64, 2, 16, 16))
+    with pytest.raises(TypeError):
+        ssd_kernel.ssd_diag_cuda(x.double(), dt, lA, B_, C_)
+    with pytest.raises(ValueError):
+        ssd_kernel.ssd_diag_cuda(x, dt, lA, B_.transpose(2, 3).contiguous().transpose(2, 3), C_)
+    x2, dt2, lA2, B2, C2 = (a[0] for a in ssd_inputs(dev, 0, 1, 1, 64, 2, 80, 16))
+    with pytest.raises(ValueError):
+        ssd_kernel.ssd_diag_cuda(x2, dt2, lA2, B2, C2)
+
+
+def test_ssm_model_launches_ssd_once_per_layer(dev):
+    """The smoke SSM model's forward and prefill run the kernel in every
+    layer, decode never; the forward matches the CPU's (plain version)."""
+    from repro_torch import configs
+    from repro_torch.models.model import Model
+
+    cfg = configs.smoke("mamba2-370m").model.replace(compute_dtype="float32", num_layers=3)
+    model = Model(cfg, device=dev, seed=0)
+    cpu = Model(cfg, params=model.params_tree(), device="cpu")
+    tokens = torch.randint(0, 256, (2, 37), generator=torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        before = ssd_kernel.ssd_diag_cuda.launches
+        logits, _ = model.forward({"tokens": tokens})
+        assert ssd_kernel.ssd_diag_cuda.launches == before + cfg.num_layers
+        cache = model.init_cache(2, 64)
+        model.prefill({"tokens": tokens}, cache)
+        assert ssd_kernel.ssd_diag_cuda.launches == before + 2 * cfg.num_layers
+        model.decode_step(cache, tokens[:, :1], 37)
+        assert ssd_kernel.ssd_diag_cuda.launches == before + 2 * cfg.num_layers
+        ref, _ = cpu.forward({"tokens": tokens})
+    assert_close(ref.numpy(), logits.cpu().numpy(), rtol=1e-4, atol=1e-4)

@@ -71,8 +71,8 @@ def test_scans_cover_every_subpackage():
     """Both scans walk the whole package: each subpackage's modules are in them."""
     mods = set(_modules())
     files = {str(p.relative_to(ROOT)) for p in _port_files()}
-    for sub in ("core", "cluster", "kernels.ei_argmax", "kernels.flash_attention", "models",
-                "configs", "data", "runtime", "launch"):
+    for sub in ("core", "cluster", "kernels.ei_argmax", "kernels.flash_attention",
+                "kernels.ssd", "models", "configs", "data", "runtime", "launch"):
         assert any(m.startswith(f"repro_torch.{sub}.") for m in mods), sub
         assert any(f.startswith(f"src/repro_torch/{sub.replace('.', '/')}/") for f in files), sub
 
