@@ -8,8 +8,9 @@ Phases, each reported on its own lines:
   0. set-up: the card's name and power limit, and the builds of the CUDA
      kernels (EI/argmax from `src/repro_torch/kernels/ei_argmax/csrc/`,
      flash attention from `src/repro_torch/kernels/flash_attention/csrc/`,
-     the SSD intra-chunk term from `src/repro_torch/kernels/ssd/csrc/`),
-     one `nvcc` each, started together;
+     the SSD intra-chunk term from `src/repro_torch/kernels/ssd/csrc/`,
+     RMSNorm from `src/repro_torch/kernels/rmsnorm/csrc/`), one `nvcc`
+     each, started together;
   1. the kernel against its plain PyTorch version on the card, over the
      shapes of the main path and the edge cases, with both timed at the
      shape of each of the paths below (`cuda_time_ms` and `graph_ms`);
@@ -47,16 +48,37 @@ Phases, each reported on its own lines:
  10. serving mamba2-370m through `repro_torch.launch.serve`: batch 8, Zipf
      prompts of 2048 tokens, 64 greedy new tokens, the tokens held against
      the teacher-forced forward's argmax (T = 2111, so the padding to a
-     chunk multiple runs) under the tie rule.
+     chunk multiple runs) under the tie rule;
+ 11. the RMSNorm kernel against its plain PyTorch version on the card, at
+     the shapes of `tests/test_kernels.py` and at (4096, 1024) and
+     (16384, 4096) in float32 and bfloat16, and its gradient through the op
+     against the oracle's; the op (its path) is driven once at each of the
+     last three shapes, and timed there beside its plain version and
+     `torch.nn.functional.rms_norm` (the library yardstick, which the port
+     never calls);
+ 12. Qwen3-8B training at full width with 8 of its 36 layers (float32
+     parameters drawn on the card from a seed, bfloat16 compute, AdamW,
+     remat "full", global batch 2 x 4096 tokens in 2 microbatches) through
+     `make_train_step` and `TrainLoop` for 3 steps, checkpointing at step 2
+     into a temporary directory: the first step held against the dense
+     attention route's, the restore of the step-2 checkpoint held bit for
+     bit and its step 3 against the uninterrupted one, and one more step
+     under the profiler;
+ 13. mamba2-370m training at full width and depth (global batch 4 x 4096
+     tokens in 2 microbatches), the same checks with the einsum route of
+     the SSD term as the other side.
 
-Phases 2-4 are the three paths that run the EI/argmax kernel, phase 6 the
-path that runs the flash-attention kernel, phases 9 and 10 the paths that
-run the SSD kernel.  Each sets the launch counts to 0 just before its run,
-reads them just after, and fails unless its kernel ran exactly once per
-fused BO step (phases 2-4), once per layer of each forward (phases 6 and
-9), or once per layer of the prefill and never in a decode step (phase
-10).  Qwen3 serving runs no kernel, as in the reference (prefill and
-decode attend through the cache); phase 7 checks that too.
+Phases 2-4 are the three paths that run the EI/argmax kernel, phases 6 and
+12 the paths that run the flash-attention kernel, phases 9, 10 and 13 the
+paths that run the SSD kernel, phase 11 the RMSNorm op.  Each sets the
+launch counts to 0 just before its run, reads them just after, and fails
+unless its kernel ran exactly once per fused BO step (phases 2-4), once
+per layer of each forward (phases 6 and 9), once per layer of the prefill
+and never in a decode step (phase 10), once per call of the op (phase 11),
+or twice per layer and microbatch of a training step, in the forward and
+in the remat recompute (phases 12 and 13).  Qwen3 serving runs no kernel,
+as in the reference (prefill and decode attend through the cache); phase 7
+checks that too.
 
 A failed check fails the run: the script exits non-zero and prints no
 result.  It needs a CUDA card and the rest of the checkout; without either
@@ -185,13 +207,14 @@ def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
     return float(np.median(times))
 
 
-def _device_events(prof):
-    """(name, device µs) of each kernel in a `torch.profiler` run.  Only the
-    device-side events count: the CPU op that launched a kernel carries its
-    time too, and summing both would count it twice."""
+def _device_events(events):
+    """(name, device µs) of each kernel in a `torch.profiler` run's
+    ``key_averages()`` (taken once: on a long trace it takes seconds).  Only
+    the device-side events count: the CPU op that launched a kernel carries
+    its time too, and summing both would count it twice."""
     from torch.autograd import DeviceType
 
-    for evt in prof.key_averages():
+    for evt in events:
         if evt.device_type == DeviceType.CUDA:
             t = getattr(evt, "self_device_time_total", None)
             yield evt.key, (t if t is not None else evt.self_cuda_time_total)
@@ -557,13 +580,14 @@ def step_breakdown(dev, space, trace, steps: int = 10) -> dict:
         wall = (time.perf_counter() - t0) * 1e3 / steps
     busy = kern = 0.0
     by_name = {}
-    for name, t in _device_events(prof):
+    events = prof.key_averages()
+    for name, t in _device_events(events):
         busy += t
         by_name[name[:60]] = by_name.get(name[:60], 0.0) + t / steps / 1e3
         if "ei_tile_kernel" in name or "ei_reduce_kernel" in name:
             kern += t
     host = sorted(((evt.self_cpu_time_total / steps / 1e3, evt.key) for evt in
-                   prof.key_averages() if evt.key.startswith("aten::")), reverse=True)[:6]
+                   events if evt.key.startswith("aten::")), reverse=True)[:6]
     busy_ms, kern_ms = busy / steps / 1e3, kern / steps / 1e3
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
     print(f"  profiled step: wall {wall:.3f} ms, device busy {busy_ms:.4f} ms "
@@ -855,22 +879,33 @@ def phase_forward(dev, report) -> int:
     return launches
 
 
-def profile_summary(prof, calls: int, wall_ms: float, kernel_names=()) -> dict:
+def profile_summary(prof, calls: int, wall_ms: float, kernel_names=(), ranges=()) -> dict:
     """Per call of a `torch.profiler` run of ``calls`` calls: device busy
     time, the named kernels' time and share of it, the device's idle share
     against ``wall_ms`` (per call), launches, and the largest device kernels
-    and host ops."""
+    and host ops.  ``ranges``: names of `record_function` ranges, whose
+    device-side annotations span kernels and are not kernels themselves:
+    ``ranges_ms`` gives, per call, the device time of the kernels launched
+    inside each, where the profiler reports it (else None)."""
     from torch.autograd import DeviceType
 
     busy = kern = 0.0
     by_name = {}
-    for name, us in _device_events(prof):
+    events = prof.key_averages()
+    for name, us in _device_events(events):
+        if name in ranges:
+            continue
         busy += us
         by_name[name[:60]] = by_name.get(name[:60], 0.0) + us / calls / 1e3
         if any(k in name for k in kernel_names):
             kern += us
-    events = prof.key_averages()
-    launches = sum(e.count for e in events if e.device_type == DeviceType.CUDA)
+    launches = sum(e.count for e in events
+                   if e.device_type == DeviceType.CUDA and e.key not in ranges)
+    ranges_ms = {}
+    for r in ranges:
+        us = [getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+              for e in events if e.key == r]
+        ranges_ms[r] = max(us) / calls / 1e3 if us and max(us) > 0 else None
     host = sorted(((e.self_cpu_time_total / calls / 1e3, e.key) for e in events
                    if e.key.startswith("aten::")), reverse=True)[:6]
     busy_ms, kern_ms = busy / calls / 1e3, kern / calls / 1e3
@@ -878,7 +913,7 @@ def profile_summary(prof, calls: int, wall_ms: float, kernel_names=()) -> dict:
             "kernel_share": kern_ms / busy_ms if busy_ms else None,
             "idle_share": 1 - busy_ms / wall_ms, "device_kernels": launches / calls,
             "top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6]),
-            "top_host_ops_ms": {name: ms for ms, name in host}}
+            "top_host_ops_ms": {name: ms for ms, name in host}, "ranges_ms": ranges_ms}
 
 
 def forward_breakdown(fn, kernel_names=FLASH_KERNEL_NAMES) -> dict:
@@ -1022,6 +1057,7 @@ SERVE_SSM_BATCH, SERVE_SSM_PROMPT, SERVE_SSM_NEW = 8, 2048, 64
 SSD_PATHS = {  # the kernel's (batch, sequence length) on each path that runs it
     "ssm_forward": (1, SSM_FWD_T),
     "ssm_serve": (SERVE_SSM_BATCH, SERVE_SSM_PROMPT),  # the prefill
+    "ssm_train": (2, 4096),  # a microbatch of phase 13's training step
 }
 SSD_KERNEL_NAMES = ("ssd_diag_kernel",)
 
@@ -1377,6 +1413,427 @@ def phase_ssm_serve(dev, report) -> int:
     return launches
 
 
+# ---------------------------------------------------------------- phase 11
+
+RN_CASES = [  # (x shape, dtype): tests/test_kernels.py's, its nd input, then the timed shapes
+    ((256, 64), "float32"), ((300, 128), "float32"), ((64, 1024), "float32"),
+    ((512, 384), "bfloat16"), ((2, 7, 96), "float32"),
+    ((4096, 1024), "float32"), ((16384, 4096), "float32"), ((16384, 4096), "bfloat16"),
+]
+RN_TIMED = RN_CASES[-3:]  # the op's path: driven once at each, then timed
+# Kernel against plain version: float32 within 1e-5 (sums of squares in
+# another order; tests/test_kernels.py's limit for the TPU kernel);
+# bfloat16 within one step of the output (2^-7 relative): both round the
+# same float32 value once.  The gradient goes through the op's backward,
+# autograd through the oracle, against the oracle's own: 1e-4, the
+# reference's limit for its custom VJP.
+RN_TOL = {"float32": dict(rtol=0.0, atol=1e-5), "bfloat16": dict(rtol=2.0**-7, atol=0.0)}
+RN_GRAD_ATOL = 1e-4
+# `F.rms_norm` only has to show that the timed call computes the same
+# function: in bfloat16 it rounds once more (after the normalization, before
+# the scale), so it is held to two output steps.
+RN_LIB_TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=2.0**-6, atol=1e-3)}
+RN_EPS = 1e-6
+
+
+def rmsnorm_bound(rows: int, d: int, itemsize: int) -> dict:
+    """Least time for one RMSNorm call: x read and y written once, the f32
+    scale read once, over HBM bandwidth; and 4 operations an element (the
+    square and its sum, the two products) over the FP32 peak."""
+    nbytes = 2 * rows * d * itemsize + 4 * d
+    flops = 4 * rows * d
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_PER_S * 1e3
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def rn_inputs(dev, seed, shape, dtype):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=dev).to(getattr(torch, dtype))
+    s = (1 + 0.1 * torch.randn(shape[-1:], generator=g, device=dev)).to(getattr(torch, dtype))
+    return x, s
+
+
+def phase_rmsnorm(dev, report) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_plain
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.testing import assert_close
+
+    print(f"phase 11: RMSNorm kernel vs plain version on the card (float32 "
+          f"{RN_TOL['float32']}; bfloat16 {RN_TOL['bfloat16']}; gradient atol {RN_GRAD_ATOL})")
+    errs = {}
+
+    def name_of(shape, dt):
+        return f"{'x'.join(map(str, shape))} {dt}"
+
+    with torch.inference_mode():
+        for i, (shape, dt) in enumerate(RN_CASES):
+            x, s = rn_inputs(dev, 300 + i, shape, dt)
+            out, plain = rmsnorm(x, s, RN_EPS), rmsnorm_plain(x, s, RN_EPS)
+            torch.cuda.synchronize()
+            name = name_of(shape, dt)
+            if out.shape != x.shape or out.dtype != x.dtype or not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{name}: output {tuple(out.shape)} {out.dtype} not finite")
+            errs[name] = assert_close(plain.float().cpu().numpy(), out.float().cpu().numpy(),
+                                      **RN_TOL[dt], what=name)
+            print(f"  {name:22s} max |kernel - plain| {errs[name]:.3e}")
+    for shape in ((300, 128), (4096, 1024)):
+        x, s = rn_inputs(dev, 7, shape, "float32")
+        cot = torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(8), device=dev)
+        grads = []
+        for fn in (rmsnorm, rmsnorm_ref):
+            a, b = x.clone().requires_grad_(), s.clone().requires_grad_()
+            (fn(a, b, RN_EPS) * cot).sum().backward()
+            grads.append((a.grad, b.grad))
+        for what, k, r in zip(("x", "scale"), grads[0], grads[1]):
+            err = assert_close(r.cpu().numpy(), k.cpu().numpy(), rtol=0.0, atol=RN_GRAD_ATOL,
+                               what=f"gradient in {what} at {shape}")
+            print(f"  gradient in {what} at {shape}: max |op - oracle| {err:.3e}")
+
+    cases = []
+    for i, (shape, dt) in enumerate(RN_TIMED):
+        x, s = rn_inputs(dev, 400 + i, shape, dt)
+        cases.append((shape, dt, x.reshape(4, -1, shape[-1]), s))  # (B, T, D), as a model holds it
+    torch.cuda.synchronize()
+    rmsnorm_cuda.launches = 0  # the op's path: one call at each timed shape
+    with torch.inference_mode():
+        outs = [rmsnorm(x, s, RN_EPS) for _, _, x, s in cases]
+    torch.cuda.synchronize()
+    launches = rmsnorm_cuda.launches
+    print(f"  kernel launches {launches} over {len(cases)} calls of the op")
+    if launches != len(cases):
+        raise AssertionError(f"rmsnorm kernel launched {launches} times in {len(cases)} calls")
+
+    times = {}
+    with torch.inference_mode():
+        for (shape, dt, x, s), out in zip(cases, outs):
+            name = name_of(shape, dt)
+            d = shape[-1]
+            lib = lambda: F.rms_norm(x, (d,), s, RN_EPS)
+            err_lib = assert_close(lib().float().cpu().numpy(), out.float().cpu().numpy(),
+                                   **RN_LIB_TOL[dt], what=f"{name} vs F.rms_norm")
+            ms = cuda_time_ms(lambda: rmsnorm(x, s, RN_EPS))
+            plain_ms = cuda_time_ms(lambda: rmsnorm_plain(x, s, RN_EPS))
+            lib_ms = cuda_time_ms(lib)
+            k_dev = graph_ms(lambda: rmsnorm(x, s, RN_EPS))
+            p_dev = graph_ms(lambda: rmsnorm_plain(x, s, RN_EPS))
+            l_dev = graph_ms(lib)
+            bound = rmsnorm_bound(x.numel() // d, d, x.element_size())
+            print(f"  time at {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, F.rms_norm "
+                  f"{lib_ms:.4f} ms (CUDA events around one call, median of 30); device time per "
+                  f"call (CUDA graph replay): kernel {k_dev:.4f} ms, plain {p_dev:.4f} ms, "
+                  f"F.rms_norm {l_dev:.4f} ms; bound {bound['bound_ms']:.4f} ms "
+                  f"({bound['bound_by']}; {bound['bytes']} B, {bound['flops']} flop); "
+                  f"max |kernel - F.rms_norm| {err_lib:.3e}")
+            times[name] = dict(shape=name, max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                               device_ms=k_dev, plain_device_ms=p_dev, library_ms=lib_ms,
+                               library_device_ms=l_dev, library_err=err_lib, **bound)
+    report["rmsnorm"] = {"case_errs": errs, "launches": launches, "shapes": times}
+    return {"launches_per_call": launches // len(cases), "times": times}
+
+
+# ---------------------------------------------------------------- phases 12 and 13
+
+TRAIN_STEPS = 3
+TRAIN_PATHS = {  # the training cells: (arch, layers kept or None for all, global batch, T, microbatches)
+    "train": ("qwen3-8b", 8, 2, 4096, 2),
+    "ssm_train": ("mamba2-370m", None, 4, 4096, 2),
+}
+TRAIN_KERNELS = {  # the kernel each runs, its device names and its backward's profiler range
+    "train": ("flash_attention", FLASH_KERNEL_NAMES, "flash_attention.backward"),
+    "ssm_train": ("ssd_diag", SSD_KERNEL_NAMES, "ssd_diag.backward"),
+}
+# Step 1's cross-entropy at random initialization: about ln(V) + σ²/2 for
+# logits of spread σ about 1 (the unembedding's fan-in scaling of a
+# normalized state); it must lie within 1 of ln(V).
+TRAIN_CE_SLACK = 1.0
+# The first step against the same step through the route without the
+# kernel (qwen3: the dense attention route; mamba2: the einsum route of the
+# SSD term), on the same parameters and batch.  Both compute in bfloat16;
+# they differ where a float32 difference carries a value across a bfloat16
+# rounding boundary, which propagates through the later layers.  On the
+# CPU, at full width (vocab cut to 4096, 2 x 256 tokens in 2 microbatches),
+# qwen3's two routes give losses 2.7e-5 and 2.3e-5 apart (relative) at 2
+# and 4 layers, gradient norms 2.4e-5 and 6.1e-6; mamba2's at 48 layers (2 x
+# 512 tokens) 8.0e-5 and 7.3e-5.  Longer sequences and more layers carry a
+# difference further: allow 2^-9 relative for the loss (24x the largest)
+# and 2^-6 for the gradient norm (200x).
+TRAIN_LOSS_REL = 2.0**-9
+TRAIN_GRAD_NORM_REL = 2.0**-6
+
+
+def kernel_counters() -> dict:
+    """Every kernel wrapper of the port, by name (each counts its launches)."""
+    from repro_torch.kernels.ei_argmax.kernel import ei_argmax_cuda
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
+    from repro_torch.kernels.ssd.kernel import ssd_diag_cuda
+
+    return {"ei_argmax": ei_argmax_cuda, "flash_attention": flash_attention_cuda,
+            "ssd_diag": ssd_diag_cuda, "rmsnorm": rmsnorm_cuda}
+
+
+def fingerprint(tree) -> list:
+    """Per tensor of ``tree``, two int64 sums of its raw bits (plain, and
+    weighted by position): a restore that returns every bit gives the same
+    pairs, and one that changes a bit changes them."""
+    import torch
+
+    from repro_torch.models.spec import leaves
+
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = []
+    for _, t in leaves(tree):
+        bits = t.detach().reshape(-1).view(ints[t.element_size()])
+        s1 = s2 = 0
+        for chunk in bits.split(1 << 26):
+            c = chunk.long()
+            w = torch.arange(c.numel(), device=c.device) % 65521 + 1
+            s1 = s1 + c.sum()
+            s2 = s2 + (c * w).sum()
+        out.append((int(s1), int(s2)))
+    return out
+
+
+class reference_route:
+    """The training cell's model on the route without its kernel: for qwen3
+    a second `Model` over the same parameter tensors with the dense
+    attention route; for mamba2 the same model with `ssm_apply` held at its
+    einsum default (the route the reference's `Model` takes)."""
+
+    def __init__(self, path, model):
+        self.path, self.model = path, model
+
+    def __enter__(self):
+        from repro_torch.models import ssm as S
+        from repro_torch.models.model import Model
+
+        if self.path == "train":
+            return Model(self.model.cfg.replace(attention_impl="dense"),
+                         params=self.model.params_tree(), device=self.model.device)
+        self.apply = S.ssm_apply
+        S.ssm_apply = lambda p, cfg, x, use_kernel=False, **kw: self.apply(
+            p, cfg, x, use_kernel=False, **kw)
+        return self.model
+
+    def __exit__(self, *exc):
+        from repro_torch.models import ssm as S
+
+        if self.path != "train":
+            S.ssm_apply = self.apply
+
+
+def phase_training(dev, report, path) -> int:
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import configs as C
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data.pipeline import SyntheticDataset, shard_batch
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.loop import TrainLoop
+    from repro_torch.runtime.steps import init_train_state, make_grad_fn, make_train_step
+
+    arch, layers, gbatch, t, mb = TRAIN_PATHS[path]
+    kname, device_names, backward_range = TRAIN_KERNELS[path]
+    counters = kernel_counters()
+    counter = counters[kname]
+    spec = C.get(arch)
+    cfg = spec.model if layers is None else spec.model.replace(num_layers=layers)
+    ex = spec.exec.replace(num_microbatches=mb, total_steps=TRAIN_STEPS)
+    per_step = 2 * cfg.num_layers * mb
+    tokens = gbatch * t
+    phase = {"train": 12, "ssm_train": 13}[path]
+    marks = [time.perf_counter()]  # the phase's parts, for the time it takes
+    print(f"phase {phase}: {arch} training, {cfg.num_layers} of {spec.model.num_layers} layers, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, {cfg.param_dtype} params, "
+          f"{cfg.compute_dtype} compute, {ex.optimizer}, remat {cfg.remat_policy}, global batch "
+          f"{gbatch} x {t} in {mb} microbatches, {TRAIN_STEPS} steps")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  {n_params} parameters drawn on the card in {time.perf_counter() - t0:.2f} s")
+    if n_params != model.total_params():
+        raise AssertionError(f"{n_params} parameters, the spec says {model.total_params()}")
+    ds = SyntheticDataset(cfg, gbatch, t, seed=0)
+
+    def place(batch):
+        return shard_batch(batch, dev)
+
+    # The route without the kernel: the first step's loss and gradient norm,
+    # before any update, on the same parameters and batch.
+    before = {k: c.launches for k, c in counters.items()}
+    with reference_route(path, model) as other:
+        t0 = time.perf_counter()
+        grads, om = make_grad_fn(other, ex)(other.params_tree(), place(ds.batch_at(0)))
+        other_loss, other_norm = float(om["loss"]), float(om["grad_norm"])
+        other_s = time.perf_counter() - t0
+        del grads, other
+    if any(c.launches != before[k] for k, c in counters.items()):
+        raise AssertionError("the route without the kernel launched a kernel")
+    torch.cuda.empty_cache()
+
+    marks.append(time.perf_counter())
+    state = init_train_state(model, ex)
+    step_fn = make_train_step(model, ex)
+    steps = []  # per step: start and end events, launches of the path's kernel, wall seconds
+
+    def timed_step(state, batch):
+        launched = counter.launches
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        state, m = step_fn(state, batch)
+        b.record()
+        loss = float(m["loss"])  # waits for the step, as the loop does
+        steps.append(dict(events=(a, b), launches=counter.launches - launched,
+                          wall_s=time.perf_counter() - t0, loss=loss))
+        return state, m
+
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        loop = TrainLoop(train_step=timed_step, batch_at=ds.batch_at, place_batch=place,
+                         state=state, checkpoints=CheckpointManager(ckdir, keep_n=1),
+                         checkpoint_every=2, log_every=1, log_fn=lambda s: print(f"  {s}"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        metrics = []
+
+        def keep(state, batch):
+            state, m = timed_step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+            return state, m
+
+        loop.train_step = keep
+        t0 = time.perf_counter()
+        loop.run(2)  # steps 1 and 2; the step-2 checkpoint written
+        run_s = time.perf_counter() - t0
+        fp2 = fingerprint(loop.state)
+        state, _ = keep(loop.state, place(ds.batch_at(2)))  # step 3, uninterrupted
+        torch.cuda.synchronize()
+        launched = {k: c.launches for k, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        ck_bytes = sum(f.stat().st_size for f in Path(ckdir).rglob("*") if f.is_file())
+        save_s = run_s - sum(s["wall_s"] for s in steps[:2])
+
+        marks.append(time.perf_counter())
+        resumed = TrainLoop(train_step=keep, batch_at=ds.batch_at, place_batch=place,
+                            state=state, checkpoints=CheckpointManager(ckdir, keep_n=1),
+                            checkpoint_every=2, log_fn=lambda s: print(f"  {s}"))
+        t0 = time.perf_counter()
+        start = resumed.maybe_restore()  # in place, into the same tensors
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        restored_equal = fingerprint(resumed.state) == fp2
+        resumed.state, _ = keep(resumed.state, place(ds.batch_at(2)))  # step 3 again
+        marks.append(time.perf_counter())
+        prof = train_breakdown(lambda: step_fn(resumed.state, place(ds.batch_at(3))),
+                               device_names, backward_range)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    marks.append(time.perf_counter())
+    parts = np.diff(marks)
+
+    ev_ms = [s["events"][0].elapsed_time(s["events"][1]) for s in steps]
+    walls = [s["wall_s"] * 1e3 for s in steps]
+    tok_s = tokens / (float(np.median(walls[1:])) / 1e3)
+    first = metrics[0]
+    loss_rel = abs(first["loss"] - other_loss) / abs(other_loss)
+    norm_rel = abs(first["grad_norm"] - other_norm) / abs(other_norm)
+    ln_v = math.log(cfg.vocab_size)
+    for i, (s, m) in enumerate(zip(steps, metrics)):
+        label = f"step {i + 1}" if i < 3 else "step 3 after the restore"
+        print(f"  {label}: loss {m['loss']:.6f} (ce {m['ce']:.6f}), grad norm "
+              f"{m['grad_norm']:.6f}, lr {m['lr']:.3e}; {s['launches']} {kname} launches; "
+              f"{ev_ms[i]:.1f} ms by CUDA events, {walls[i]:.1f} ms wall")
+    print(f"  peak allocated {peak / 1e9:.2f} GB over steps 1-3; {tokens} tokens a step, "
+          f"{tok_s:.1f} tokens/s (median wall of the steps after the first); checkpoint "
+          f"{ck_bytes} B, host snapshot and write {save_s:.1f} s, restore {restore_s:.1f} s")
+    print(f"  step 1 vs the route without the kernel ({other_s:.1f} s): loss {other_loss:.6f}, "
+          f"relative difference {loss_rel:.3e} (limit {TRAIN_LOSS_REL}); grad norm "
+          f"{other_norm:.6f}, relative difference {norm_rel:.3e} (limit {TRAIN_GRAD_NORM_REL}); "
+          f"step 1 ce {first['ce']:.4f} vs ln(V) {ln_v:.4f} (limit {TRAIN_CE_SLACK})")
+    print(f"  restore of step {start}: every tensor bit-equal {restored_equal}; step 3 loss "
+          f"{metrics[3]['loss']!r} vs uninterrupted {metrics[2]['loss']!r}")
+    print(f"  profiled step 4: wall {prof['wall_ms']:.1f} ms, device busy "
+          f"{prof['device_busy_ms']:.1f} ms (idle share {prof['idle_share']:.3f}), {kname} "
+          f"{prof['kernel_ms']:.1f} ms ({prof['kernel_share']:.3f} of device time), its "
+          f"backward through the oracle {prof['range_ms']} ms ({prof['range_share']} of device "
+          f"time), {prof['device_kernels']:.0f} device kernels")
+    for name, ms in prof["top_kernels_ms"].items():
+        print(f"    device {ms:.3f} ms  {name}")
+    for name, ms in prof["top_host_ops_ms"].items():
+        print(f"    host   {ms:.3f} ms  {name}")
+    print(f"  phase time: set-up and the route without the kernel {parts[0]:.1f} s, steps 1-3 "
+          f"with the checkpoint {parts[1]:.1f} s, restore and step 3 again {parts[2]:.1f} s, "
+          f"profiled step {parts[3]:.1f} s (its trace summary {prof['summary_s']:.1f} s)")
+
+    if any(s["launches"] != per_step for s in steps):
+        raise AssertionError(f"{kname} launched {[s['launches'] for s in steps]} times a step; "
+                             f"want {per_step} (2 x {cfg.num_layers} layers x {mb} microbatches)")
+    if any(v for k, v in launched.items() if k != kname):
+        raise AssertionError(f"the training path launched other kernels: {launched}")
+    if not all(math.isfinite(m[k]) for m in metrics for k in ("loss", "grad_norm")):
+        raise AssertionError("non-finite loss or gradient norm")
+    if abs(first["ce"] - ln_v) > TRAIN_CE_SLACK:
+        raise AssertionError(f"step 1 ce {first['ce']} is not near ln(V) = {ln_v}")
+    if loss_rel > TRAIN_LOSS_REL or norm_rel > TRAIN_GRAD_NORM_REL:
+        raise AssertionError("the kernel's route and the route without it disagree beyond the "
+                             "stated tolerance")
+    if start != 2 or not restored_equal:
+        raise AssertionError(f"restore from step {start}: tensors bit-equal {restored_equal}")
+    if metrics[3]["loss"] != metrics[2]["loss"]:
+        raise AssertionError("step 3 after the restore differs from the uninterrupted step 3")
+    report[path] = {
+        "params": n_params, "tokens_per_step": tokens, "launches_per_step": per_step,
+        "steps": [dict(m, launches=s["launches"], events_ms=e, wall_ms=w)
+                  for m, s, e, w in zip(metrics, steps, ev_ms, walls)],
+        "peak_bytes": int(peak), "tokens_per_s": tok_s, "checkpoint_bytes": ck_bytes,
+        "save_s": save_s, "restore_s": restore_s, "other_route": {
+            "loss": other_loss, "grad_norm": other_norm, "loss_rel": loss_rel,
+            "grad_norm_rel": norm_rel, "seconds": other_s},
+        "breakdown": prof, "phase_parts_s": parts.tolist(),
+    }
+    return per_step
+
+
+def train_breakdown(fn, kernel_names, backward_range) -> dict:
+    """One training step under `torch.profiler` (`profile_summary`), and the
+    device time of the kernels launched inside the backward's profiler
+    range (autograd through the oracle), where the profiler reports it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    out = profile_summary(prof, 1, wall, kernel_names, ranges=(backward_range,))
+    out["summary_s"] = time.perf_counter() - t0
+    range_ms = out["ranges_ms"][backward_range]
+    out["range_ms"] = range_ms if range_ms is not None else "not measured"
+    out["range_share"] = (range_ms / out["device_busy_ms"] if range_ms is not None
+                          else "not measured")
+    return out
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1395,6 +1852,7 @@ def main(argv=None) -> int:
         from repro_torch.kernels import build
         from repro_torch.kernels.ei_argmax import kernel as ei_kernel
         from repro_torch.kernels.flash_attention import kernel as fa_kernel
+        from repro_torch.kernels.rmsnorm import kernel as rn_kernel
         from repro_torch.kernels.ssd import kernel as ssd_kernel
     except ImportError as e:
         print(f"chip_smoke: the port is not next to this script ({e})", file=sys.stderr)
@@ -1405,12 +1863,12 @@ def main(argv=None) -> int:
     print(f"phase 0: card {card}; torch {torch.__version__} CUDA {torch.version.cuda}; "
           f"allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, started together
-        for f in [pool.submit(m.load) for m in (ei_kernel, fa_kernel, ssd_kernel)]:
+    with ThreadPoolExecutor(4) as pool:  # one nvcc per source, started together
+        for f in [pool.submit(m.load) for m in (ei_kernel, fa_kernel, ssd_kernel, rn_kernel)]:
             f.result()
-    print(f"  ei_argmax, flash_attention and ssd kernels built and loaded in "
+    print(f"  ei_argmax, flash_attention, ssd and rmsnorm kernels built and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
-    for name in ("ei_argmax", "flash_attention", "ssd"):
+    for name in ("ei_argmax", "flash_attention", "ssd", "rmsnorm"):
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "built in" in line:
                 print(f"    {name}: {line.strip()}")
@@ -1421,7 +1879,7 @@ def main(argv=None) -> int:
 
     report = {"card": card}
     failed = []
-    times, fa_times, ssd_times, launches = None, None, None, {}
+    times, fa_times, ssd_times, rn, launches = None, None, None, None, {}
     for name, phase in (
         ("kernel", lambda: phase_kernel(dev, report)),
         ("pipeline", lambda: phase_pipeline(dev, SEEDS, report)),
@@ -1433,6 +1891,9 @@ def main(argv=None) -> int:
         ("ssd", lambda: phase_ssd(dev, report)),
         ("ssm_forward", lambda: phase_ssm_forward(dev, report)),
         ("ssm_serve", lambda: phase_ssm_serve(dev, report)),
+        ("rmsnorm", lambda: phase_rmsnorm(dev, report)),
+        ("train", lambda: phase_training(dev, report, "train")),
+        ("ssm_train", lambda: phase_training(dev, report, "ssm_train")),
     ):
         try:
             out = phase()
@@ -1449,6 +1910,8 @@ def main(argv=None) -> int:
             fa_times = out
         elif name == "ssd":
             ssd_times = out
+        elif name == "rmsnorm":
+            rn = out
         elif name != "serve":
             launches[name] = out
     if args.out is not None:
@@ -1477,14 +1940,14 @@ def main(argv=None) -> int:
         "bound_by": t["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this function
     } for path, t in times.items()]
-    kernels.append({
+    kernels.extend({
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:113",
-        "path": "forward",
+        "path": path,  # a training microbatch runs the forward's shape
         "shape": fa_times["shape"],
-        "launches": launches["forward"],
+        "launches": launches[path],
         "max_abs_err": fa_times["max_abs_err"],
         "ms": fa_times["ms"],
         "plain_ms": fa_times["plain_ms"],
@@ -1494,7 +1957,7 @@ def main(argv=None) -> int:
         "bound_by": fa_times["bound_by"],
         "library_ms": fa_times["library_ms"],  # scaled_dot_product_attention
         "library_device_ms": fa_times["library_device_ms"],
-    })
+    } for path in ("forward", "train"))
     kernels.extend({
         "name": "ssd_diag",
         "route": "cuda",
@@ -1512,6 +1975,24 @@ def main(argv=None) -> int:
         "bound_by": t["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this function
     } for path, t in ssd_times.items())
+    kernels.extend({
+        "name": "rmsnorm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm/rmsnorm.py:29",
+        "path": "op",
+        "shape": t["shape"],
+        "launches": rn["launches_per_call"],
+        "max_abs_err": t["max_abs_err"],
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "device_ms": t["device_ms"],
+        "plain_device_ms": t["plain_device_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],  # torch.nn.functional.rms_norm
+        "library_device_ms": t["library_device_ms"],
+    } for t in rn["times"].values())
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,5 @@
+"""Checkpoints with atomic commits (port of `repro/checkpoint`)."""
+
+from repro_torch.checkpoint.manager import CheckpointManager, load_pytree, save_pytree
+
+__all__ = ["CheckpointManager", "load_pytree", "save_pytree"]

@@ -4,21 +4,22 @@ Batches are a pure function of (seed, step), drawn with numpy exactly as
 the reference draws them, so both packages see the same tokens.  The
 reference casts its float stubs (``patches``, ``frames``) to the compute
 dtype in numpy, which needs `ml_dtypes` for bfloat16; here they stay
-float32 (the same draws) and a caller casts them in torch.  The reference's
-`shard_batch` places batches on a mesh, which has no counterpart on one
-device.
+float32 (the same draws) and a caller casts them in torch.  `shard_batch`
+places a host batch on the model's device; the reference's places it with
+the step's mesh shardings, which come with ROADMAP Queue 1 item 17.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
+import torch
 
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["SyntheticDataset", "make_batch"]
+__all__ = ["SyntheticDataset", "make_batch", "shard_batch"]
 
 
 def _zipf_tokens(rng: np.random.Generator, shape, vocab: int,
@@ -62,3 +63,8 @@ def make_batch(cfg: ModelConfig, batch: int, seq_len: int, *, seed: int = 0,
     out["tokens"] = _zipf_tokens(rng, (batch, text_len), vocab)
     out["loss_mask"] = np.ones((batch, text_len), np.float32)
     return out
+
+
+def shard_batch(batch: Dict[str, Any], device: Any) -> Dict[str, torch.Tensor]:
+    """Place a host batch on ``device``, each array keeping its dtype."""
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}

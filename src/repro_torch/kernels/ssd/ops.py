@@ -64,6 +64,11 @@ def ssd_diag_plain(
     return out.movedim(2, 3).contiguous()
 
 
+# The profiler range around the backward (autograd through the oracle), so
+# that a profiled training step can show its share of device time.
+_BACKWARD_RANGE = "ssd_diag.backward"
+
+
 def _forward(x, dt, lA, B_, C_):
     if x.device.type == "cuda":
         b, nc = x.shape[:2]
@@ -87,7 +92,7 @@ class _SSDDiag(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        with torch.enable_grad():
+        with torch.profiler.record_function(_BACKWARD_RANGE), torch.enable_grad():
             leaves = [a.detach().requires_grad_() for a in ctx.saved_tensors]
             out = ssd_diag_ref(*leaves)
             return torch.autograd.grad(out, leaves, g)

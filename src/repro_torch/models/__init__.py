@@ -1,4 +1,5 @@
-"""Model zoo (port of `repro/models/`): the dense and SSM families' forward and serving paths.
+"""Model zoo (port of `repro/models/`): the dense and SSM families' forward,
+training and serving paths.
 
 `config` and `spec` describe a model; `layers`, `transformer` and `ssm`
 apply it functionally over a nested dict of tensors, in the reference's

@@ -25,9 +25,11 @@ SSD kernel (``use_kernel=True``): the reference's `Model` leaves
 `ssm_apply` at its einsum default, and its kernel is reached only by
 calling `ssd_chunked(use_kernel=True)` directly; the two routes compute
 the same function (ROADMAP Queue 3).  Decode (T = 1) is the recurrent
-step, which has no kernel.  The other families (moe, hybrid, encdec, vlm)
-and learned position tables are not ported yet and raise (ROADMAP Queue 1
-item 11).
+step, which has no kernel.  With gradients enabled (training) each
+layer's call is wrapped by `parallel.remat.remat_wrap` under
+``cfg.remat_policy``, as the reference wraps its scan body.  The other
+families (moe, hybrid, encdec, vlm) and learned position tables are not
+ported yet and raise (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.spec import TensorSpec, count_params, init_tree, leaves, tree_map
+from repro_torch.parallel.remat import remat_wrap
 
 __all__ = ["Model", "total_params"]
 
@@ -207,10 +210,15 @@ class Model(nn.Module):
         return self._final_logits(params, h), aux
 
     def _ssm_forward(self, params: Tree, x: torch.Tensor) -> torch.Tensor:
-        for p in params["layers"]:
-            hn = L.norm_apply(p["norm"], self.cfg, x)
+        def body(p, h):
+            hn = L.norm_apply(p["norm"], self.cfg, h)
             out, _ = S.ssm_apply(p["ssm"], self.cfg, hn, use_kernel=True)
-            x = x + out
+            return h + out
+
+        if torch.is_grad_enabled():  # training: the reference's remat_wrap(body, ...)
+            body = remat_wrap(body, self.cfg.remat_policy)
+        for p in params["layers"]:
+            x = body(p, x)
         return x
 
     def loss_fn(self, batch: Dict[str, Any],

@@ -16,11 +16,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Iterator, Optional, Tuple
+from typing import Any, Callable, Iterator, List, Optional, Tuple
 
 import torch
 
-__all__ = ["TensorSpec", "count_params", "init_tree", "leaves", "tree_bytes", "tree_map"]
+__all__ = ["TensorSpec", "count_params", "flatten", "init_tree", "leaves", "tree_bytes",
+           "tree_map", "unflatten"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +47,19 @@ def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def flatten(tree: Any) -> List[Any]:
+    """The leaves of a tree in `tree_map`'s order (dicts in insertion order)."""
+    out: List[Any] = []
+    tree_map(out.append, tree)
+    return out
+
+
+def unflatten(tree: Any, values: List[Any]) -> Any:
+    """A tree of ``tree``'s structure holding ``values`` in `flatten`'s order."""
+    it = iter(values)
+    return tree_map(lambda _: next(it), tree)
 
 
 def leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:

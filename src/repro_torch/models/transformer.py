@@ -4,9 +4,11 @@ The reference stacks per-layer parameters along a leading "layers" axis
 and scans one compiled body over it.  The port keeps the stacked spec tree
 (`decoder_stack_specs`, for parameter accounting and for comparing names
 with the reference) but holds the layers apart, as a list of per-layer
-dicts, and runs them in a Python loop (`decoder_stack_apply`).  Remat is a
-training concern and comes with the training slice (ROADMAP Queue 1
-item 10); MoE blocks and the encoder stack come with item 11.
+dicts, and runs them in a Python loop (`decoder_stack_apply`).  Where the
+reference wraps its scan body in `remat_wrap(body, cfg.remat_policy)`, the
+port wraps each layer's call, when gradients are enabled (training): a
+forward or a prefill under `torch.no_grad` saves nothing to recompute.
+MoE blocks and the encoder stack come with ROADMAP Queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.spec import TensorSpec, tree_map
+from repro_torch.parallel.remat import remat_wrap
 
 __all__ = ["block_apply", "block_specs", "decoder_stack_apply", "decoder_stack_specs",
            "stack_specs"]
@@ -81,10 +84,16 @@ def decoder_stack_apply(
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Run the blocks in order.  Each layer writes its slice of the stacked
     caches in place.  Returns (hidden, total aux loss, caches or None)."""
+    def body(p, x, cache):
+        x, a, _ = block_apply(p, cfg, x, positions=positions, cache=cache,
+                              cache_index=cache_index, use_rope=cfg.pos_emb == "rope")
+        return x, a
+
+    if torch.is_grad_enabled():
+        body = remat_wrap(body, cfg.remat_policy)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(layers):
         cache = None if caches is None else {"k": caches["k"][i], "v": caches["v"][i]}
-        x, a, _ = block_apply(p, cfg, x, positions=positions, cache=cache,
-                              cache_index=cache_index, use_rope=cfg.pos_emb == "rope")
+        x, a = body(p, x, cache)
         aux = aux + a
     return x, aux, caches

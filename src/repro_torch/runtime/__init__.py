@@ -1,5 +1,5 @@
-"""Serving runtime (port of `repro/runtime`): step factories and the decode loop.
+"""Training and serving runtime (port of `repro/runtime`): step factories,
+the fault-tolerant train loop and the decode loop.
 
-Training (`make_train_step`, the train loop) comes with ROADMAP Queue 1
-item 10; the tuning daemon with item 15.
+The tuning daemon (`runtime/serve.py`) comes with ROADMAP Queue 1 item 15.
 """

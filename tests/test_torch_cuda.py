@@ -24,6 +24,9 @@ from repro_torch.kernels.flash_attention.ops import flash_attention, flash_atten
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.ssd import kernel as ssd_kernel
 from repro_torch.kernels.ssd.ops import ssd_diag_chunk, ssd_diag_plain
+from repro_torch.kernels.rmsnorm import kernel as rn_kernel
+from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_plain
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.testing import EI_ATOL, EI_RTOL, assert_close, pick_agrees
 
 pytestmark = pytest.mark.cuda
@@ -254,3 +257,96 @@ def test_ssm_model_launches_ssd_once_per_layer(dev):
         assert ssd_kernel.ssd_diag_cuda.launches == before + 2 * cfg.num_layers
         ref, _ = cpu.forward({"tokens": tokens})
     assert_close(ref.numpy(), logits.cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------- RMSNorm (K4)
+
+RN_SHAPES = [  # (x shape, dtype): tests/test_kernels.py's, nd, each launch mode, unaligned D
+    ((256, 64), torch.float32), ((300, 128), torch.float32), ((512, 384), torch.bfloat16),
+    ((64, 1024), torch.float32), ((2, 7, 96), torch.float32),
+    ((33, 4096), torch.float32), ((17, 4096), torch.bfloat16),  # a block per row
+    ((5, 12288), torch.float32),  # 1024 threads per row
+    ((9, 100), torch.bfloat16), ((7, 1030), torch.float32),  # D off the 16-byte words
+]
+
+
+def rn_inputs(dev, seed, shape, dtype):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    s = torch.randn(shape[-1:], generator=g, device=dev).to(dtype)
+    return x, s
+
+
+def rn_assert_close(plain, out):
+    """f32 within 1e-5; bf16 within one step of the output (2^-7 relative):
+    both round the same float32 value once."""
+    if out.dtype == torch.bfloat16:
+        assert_close(plain.float().cpu().numpy(), out.float().cpu().numpy(), rtol=2.0**-7, atol=0.0)
+    else:
+        assert_close(plain.cpu().numpy(), out.cpu().numpy(), rtol=0.0, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape,dtype", RN_SHAPES)
+def test_rmsnorm_kernel_matches_plain_version(dev, shape, dtype):
+    x, s = rn_inputs(dev, sum(shape), shape, dtype)
+    before = rn_kernel.rmsnorm_cuda.launches
+    out = rmsnorm(x, s)
+    plain = rmsnorm_plain(x, s)
+    torch.cuda.synchronize()
+    assert rn_kernel.rmsnorm_cuda.launches == before + 1
+    assert out.shape == x.shape and out.dtype == x.dtype and bool(torch.isfinite(out).all())
+    rn_assert_close(plain, out)
+
+
+def test_rmsnorm_gradient_through_the_op(dev):
+    x, s = rn_inputs(dev, 3, (32, 64), torch.float32)
+    xk, sk = x.clone().requires_grad_(), s.clone().requires_grad_()
+    xr, sr = x.clone().requires_grad_(), s.clone().requires_grad_()
+    (rmsnorm(xk, sk) ** 2).sum().backward()
+    (rmsnorm_ref(xr, sr) ** 2).sum().backward()
+    assert_close(xr.grad.cpu().numpy(), xk.grad.cpu().numpy(), rtol=0.0, atol=1e-4)
+    assert_close(sr.grad.cpu().numpy(), sk.grad.cpu().numpy(), rtol=0.0, atol=1e-4)
+
+
+def test_rmsnorm_kernel_rejects_what_it_cannot_take(dev):
+    x, s = rn_inputs(dev, 0, (8, 64), torch.float32)
+    with pytest.raises(TypeError):
+        rn_kernel.rmsnorm_cuda(x.double(), s)
+    with pytest.raises(TypeError):
+        rn_kernel.rmsnorm_cuda(x, s.bfloat16())
+    with pytest.raises(ValueError):
+        rn_kernel.rmsnorm_cuda(x.t(), s[:8])
+    big, sb = rn_inputs(dev, 0, (2, rn_kernel.MAX_D + 4), torch.float32)
+    with pytest.raises(ValueError):
+        rn_kernel.rmsnorm_cuda(big, sb)
+
+
+# ---------------------------------------------------------------- training (K2, K3)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "mamba2-370m"])
+def test_train_step_launches_kernels_twice_per_layer(dev, arch):
+    """Under remat "full" a training step runs each layer's kernel in the
+    forward and again in the recompute: 2 x layers x microbatches launches;
+    its loss and gradient norm match the same step on the CPU."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import make_batch, shard_batch
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.steps import init_train_state, make_train_step
+
+    spec = configs.smoke(arch)
+    cfg = spec.model.replace(compute_dtype="float32", remat_policy="full", num_layers=3)
+    ex = spec.exec.replace(num_microbatches=2, warmup_steps=2, learning_rate=3e-3)
+    model = Model(cfg, device=dev, seed=0)
+    cpu = Model(cfg, params=model.params_tree(), device="cpu")
+    batch = make_batch(cfg, 4, 128, seed=0)
+    counter = (fa_kernel.flash_attention_cuda if arch == "qwen3-8b"
+               else ssd_kernel.ssd_diag_cuda)
+    state = init_train_state(model, ex)
+    before = counter.launches
+    state, m = make_train_step(model, ex)(state, shard_batch(batch, dev))
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2 * cfg.num_layers * ex.num_microbatches
+    _, ref = make_train_step(cpu, ex)(init_train_state(cpu, ex), shard_batch(batch, "cpu"))
+    for k in ("loss", "grad_norm"):
+        assert_close(float(ref[k]), float(m[k]), rtol=1e-4, atol=1e-5, what=k)

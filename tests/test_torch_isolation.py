@@ -72,7 +72,8 @@ def test_scans_cover_every_subpackage():
     mods = set(_modules())
     files = {str(p.relative_to(ROOT)) for p in _port_files()}
     for sub in ("core", "cluster", "kernels.ei_argmax", "kernels.flash_attention",
-                "kernels.ssd", "models", "configs", "data", "runtime", "launch"):
+                "kernels.ssd", "kernels.rmsnorm", "models", "configs", "data", "runtime",
+                "launch", "optim", "parallel", "checkpoint"):
         assert any(m.startswith(f"repro_torch.{sub}.") for m in mods), sub
         assert any(f.startswith(f"src/repro_torch/{sub.replace('.', '/')}/") for f in files), sub
 
@@ -125,3 +126,18 @@ def test_cpu_on_request(no_card):
     with pytest.raises(ValueError):
         bayesopt.cherrypick_search(sim.space, sim.cost_fn(), np.random.default_rng(0),
                                    device="meta")
+
+
+def test_train_entry_points_raise_without_a_card(no_card, tmp_path):
+    """The training path refuses before any step: the model, and with it the
+    CLI, resolve the device first."""
+    from repro_torch import configs
+    from repro_torch.launch import train
+    from repro_torch.models.model import Model
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Model(configs.smoke("qwen3-8b").model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "qwen3-8b", "--smoke", "--steps", "1",
+                    "--ckpt-dir", str(tmp_path / "ck")])
+    assert not (tmp_path / "ck").exists()
