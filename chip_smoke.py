@@ -7,7 +7,8 @@ Phases, each reported on its own lines:
 
   0. set-up: the card's name and power limit, and the builds of the CUDA
      kernels (EI/argmax from `src/repro_torch/kernels/ei_argmax/csrc/`,
-     flash attention from `src/repro_torch/kernels/flash_attention/csrc/`,
+     flash attention's CUDA-core and tensor-core kernels from
+     `src/repro_torch/kernels/flash_attention/csrc/`,
      the SSD intra-chunk term from `src/repro_torch/kernels/ssd/csrc/`,
      RMSNorm from `src/repro_torch/kernels/rmsnorm/csrc/`), one `nvcc`
      each, started together;
@@ -21,11 +22,14 @@ Phases, each reported on its own lines:
   3. the catalog scale: CherryPick over a 131072-configuration space, with
      a profiled breakdown of one BO step;
   4. the `n512-budgeted` golden fixture, replayed on the card;
-  5. the flash-attention kernel against its plain PyTorch version on the
-     card, at the shapes of `tests/test_kernels.py` and at the Qwen3-8B
-     forward's shape, each in float32 and bfloat16; at the forward shape
-     it, its plain version and `scaled_dot_product_attention` (the library
-     yardstick, which the port never calls) are timed;
+  5. the flash-attention kernels against their plain PyTorch version on
+     the card, at the shapes of `tests/test_kernels.py` and at the Qwen3-8B
+     forward's shape, each in float32 (the CUDA-core kernel) and bfloat16
+     (the tensor-core kernel), each call held to the route it must take;
+     at the forward shape each kernel, the plain version and
+     `scaled_dot_product_attention` (the library yardstick, which the port
+     never calls) are timed, and the float32 op is driven once as the
+     CUDA-core kernel's path;
   6. the Qwen3-8B teacher-forced forward at full width and depth (36
      layers, float32 parameters drawn on the card from a seed, bfloat16
      compute, B=1, T=4096), held against the same parameters run through
@@ -69,14 +73,16 @@ Phases, each reported on its own lines:
      the SSD term as the other side.
 
 Phases 2-4 are the three paths that run the EI/argmax kernel, phases 6 and
-12 the paths that run the flash-attention kernel, phases 9, 10 and 13 the
-paths that run the SSD kernel, phase 11 the RMSNorm op.  Each sets the
-launch counts to 0 just before its run, reads them just after, and fails
-unless its kernel ran exactly once per fused BO step (phases 2-4), once
-per layer of each forward (phases 6 and 9), once per layer of the prefill
-and never in a decode step (phase 10), once per call of the op (phase 11),
-or twice per layer and microbatch of a training step, in the forward and
-in the remat recompute (phases 12 and 13).  Qwen3 serving runs no kernel,
+12 the paths that run the tensor-core flash-attention kernel (the bfloat16
+models; the CUDA-core one must not run there), phase 5's float32 op the
+path of the CUDA-core one, phases 9, 10 and 13 the paths that run the SSD
+kernel, phase 11 the RMSNorm op.  Each sets the launch counts to 0 just
+before its run, reads them just after, and fails unless its kernel ran
+exactly once per fused BO step (phases 2-4), once per layer of each
+forward (phases 6 and 9), once per layer of the prefill and never in a
+decode step (phase 10), once per call of the op (phases 5 and 11), or
+twice per layer and microbatch of a training step, in the forward and in
+the remat recompute (phases 12 and 13).  Qwen3 serving runs no kernel,
 as in the reference (prefill and decode attend through the cache); phase 7
 checks that too.
 
@@ -153,6 +159,43 @@ def card_line() -> str:
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled name: the
+    last of the nested names, and what follows it up to its parameters."""
+    i, name = 3 if mangled.startswith("_ZN") else 2, mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    rest = mangled[i:]
+    if rest.startswith("I") and "Ev" in rest:
+        name += f"<{rest[1:rest.index('Ev')].rstrip('E')}>"
+    return name
+
+
+def sass_counts(so: str) -> dict:
+    """Per kernel of a built library, its count of tensor-core products
+    (HGMMA), TMA loads (UTMALDG) and local-memory loads and stores (LDL,
+    STL: spills), from `cuobjdump -sass`."""
+    from repro_torch.kernels.build import find_nvcc
+
+    tool = Path(find_nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", so], capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = kernel_name(line.split("Function :")[1].strip())
+            counts[fn] = {"HGMMA": 0, "UTMALDG": 0, "LDL": 0, "STL": 0}
+        elif fn is not None and "*/" in line:
+            words = [w for w in line.split("*/", 1)[1].split() if not w.startswith("@")]
+            op = words[0].split(".")[0] if words else ""
+            if op in counts[fn]:
+                counts[fn][op] += 1
+    return counts
 
 
 def cuda_time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
@@ -674,7 +717,21 @@ FA_TOL = {"float32": dict(rtol=1e-4, atol=2e-5), "bfloat16": dict(rtol=2.0**-7, 
 SDPA_TOL = dict(rtol=2.0**-7, atol=2e-2)
 FWD_SHAPE = (1, 4096, 32, 8, 128)  # Qwen3-8B forward: (B, T, H, KV, D)
 ARCH = "qwen3-8b"
-FLASH_KERNEL_NAMES = ("flash_fwd_kernel",)
+# Device names of K2's two kernels: the CUDA-core one (float32, and bfloat16
+# with D % 8 != 0) and the tensor-core one (bfloat16 with D % 8 == 0).
+FLASH_KERNEL_NAMES = ("flash_fwd_kernel", "flash_fwd_wgmma_kernel")
+FLASH_ROUTES = ("tensor_core", "cuda_core")  # kernel.route's names
+
+
+def flash_counts(fa) -> dict:
+    """K2's launch counts: all, and each route's."""
+    return {"all": fa.launches, **{r: getattr(fa, f"{r}_launches") for r in FLASH_ROUTES}}
+
+
+def reset_flash_counts(fa) -> None:
+    fa.launches = 0
+    for r in FLASH_ROUTES:
+        setattr(fa, f"{r}_launches", 0)
 
 
 def fa_inputs(dev, seed, b, t, h, kv, d, dtype):
@@ -698,8 +755,7 @@ def flash_bound(b, t, h, kv, d, causal, itemsize) -> dict:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_fp32_ms": max(t_bytes, flops / PEAK_FP32_PER_S * 1e3)}
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def sdpa(q, k, v):
@@ -714,23 +770,30 @@ def sdpa(q, k, v):
 def phase_flash(dev, report) -> dict:
     import torch
 
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
     from repro_torch.testing import assert_close
 
-    print(f"phase 5: flash-attention kernel vs plain version on the card "
+    fa = fa_kernel.flash_attention_cuda
+    print(f"phase 5: flash-attention kernels vs plain version on the card "
           f"(float32 {FA_TOL['float32']}; bfloat16 {FA_TOL['bfloat16']})")
     b, t, h, kv, d = FWD_SHAPE
     errs = {}
 
     def check(name, q, k, v, causal):
+        route = fa_kernel.route(q.dtype, q.shape[-1])
+        before = flash_counts(fa)
         out = flash_attention(q, k, v, causal)
+        after = flash_counts(fa)
         plain = flash_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
+        if after[route] != before[route] + 1 or after["all"] != before["all"] + 1:
+            raise AssertionError(f"{name}: the {route} kernel was not the one launched")
         if not bool(torch.isfinite(out).all()):
             raise AssertionError(f"non-finite kernel output at {name}")
         errs[name] = assert_close(plain.float().cpu().numpy(), out.float().cpu().numpy(),
                                   **FA_TOL[str(q.dtype).split(".")[1]], what=name)
-        print(f"  {name:52s} max |kernel - plain| {errs[name]:.3e}")
+        print(f"  {name:52s} {route:11s} max |kernel - plain| {errs[name]:.3e}")
         return out
 
     with torch.inference_mode():
@@ -739,32 +802,49 @@ def phase_flash(dev, report) -> dict:
                 check(f"b={cb} t={ct} h={ch} kv={ckv} d={cd} causal={causal} {dt}",
                       *fa_inputs(dev, 100 + i, cb, ct, ch, ckv, cd, dt), causal)
         shape = f"B={b} T={t} H={h} KV={kv} D={d}"
-        check(f"forward shape {shape} causal float32",
-              *fa_inputs(dev, 7, b, t, h, kv, d, "float32"), True)
-        q, k, v = fa_inputs(dev, 7, b, t, h, kv, d, "bfloat16")
-        name = f"forward shape {shape} causal bfloat16"
-        out = check(name, q, k, v, True)
-        err_lib = assert_close(sdpa(q, k, v).float().cpu().numpy(), out.float().cpu().numpy(),
-                               **SDPA_TOL, what=f"{name} vs SDPA")
-        print(f"  {name}: max |kernel - SDPA| {err_lib:.3e} (SDPA held to {SDPA_TOL})")
-        ms = cuda_time_ms(lambda: flash_attention(q, k, v, True), reps=20)
-        plain_ms = cuda_time_ms(lambda: flash_attention_plain(q, k, v), reps=3, warmup=0)
-        lib_ms = cuda_time_ms(lambda: sdpa(q, k, v), reps=20)
-        k_dev = graph_ms(lambda: flash_attention(q, k, v, True))
-        p_dev = graph_ms(lambda: flash_attention_plain(q, k, v), calls=1, reps=3)
-        l_dev = graph_ms(lambda: sdpa(q, k, v))
-    bound = flash_bound(b, t, h, kv, d, True, 2)
-    print(f"  time at the forward shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-          f"{lib_ms:.4f} ms (CUDA events around one call, median of 20, 3 and 20); device "
-          f"time per call (CUDA graph replay): kernel {k_dev:.4f} ms, plain {p_dev:.4f} ms, "
-          f"SDPA {l_dev:.4f} ms; bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}, "
-          f"bf16 tensor-core peak; {bound['bound_fp32_ms']:.4f} ms at the FP32 peak; "
-          f"{bound['bytes']} B, {bound['flops']} flop)")
-    times = dict(shape=f"{shape} bf16 causal", max_abs_err=errs[name], ms=ms,
-                 plain_ms=plain_ms, device_ms=k_dev, plain_device_ms=p_dev,
-                 library_ms=lib_ms, library_device_ms=l_dev, **bound)
-    report["flash"] = {"case_errs": errs, "sdpa_err": err_lib, **times}
-    return times
+        routes = {}
+        for dt in ("bfloat16", "float32"):
+            q, k, v = fa_inputs(dev, 7, b, t, h, kv, d, dt)
+            name = f"forward shape {shape} causal {dt}"
+            out = check(name, q, k, v, True)
+            err_lib = assert_close(sdpa(q, k, v).float().cpu().numpy(),
+                                   out.float().cpu().numpy(), **SDPA_TOL, what=f"{name} vs SDPA")
+            print(f"  {name}: max |kernel - SDPA| {err_lib:.3e} (SDPA held to {SDPA_TOL})")
+            if dt == "float32":
+                # The float32 route's path is the op itself (the models compute
+                # in bfloat16): driven once, counted from 0.
+                torch.cuda.synchronize()
+                reset_flash_counts(fa)
+                flash_attention(q, k, v, True)
+                torch.cuda.synchronize()
+                op_counts = flash_counts(fa)
+                if op_counts != {"all": 1, "tensor_core": 0, "cuda_core": 1}:
+                    raise AssertionError(f"the float32 op launched {op_counts}")
+            ms = cuda_time_ms(lambda: flash_attention(q, k, v, True), reps=20)
+            plain_ms = cuda_time_ms(lambda: flash_attention_plain(q, k, v), reps=3, warmup=0)
+            lib_ms = cuda_time_ms(lambda: sdpa(q, k, v), reps=20)
+            k_dev = graph_ms(lambda: flash_attention(q, k, v, True))
+            p_dev = graph_ms(lambda: flash_attention_plain(q, k, v), calls=1, reps=3)
+            l_dev = graph_ms(lambda: sdpa(q, k, v))
+            bound = flash_bound(b, t, h, kv, d, True, q.element_size())
+            route = fa_kernel.route(q.dtype, d)
+            print(f"  time at the forward shape, {dt} ({route} kernel): kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms (CUDA events around one "
+                  f"call, median of 20, 3 and 20); device time per call (CUDA graph replay): "
+                  f"kernel {k_dev:.4f} ms, plain {p_dev:.4f} ms, SDPA {l_dev:.4f} ms; bound "
+                  f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, "
+                  f"{'bf16 tensor-core' if dt == 'bfloat16' else 'FP32'} peak; "
+                  f"{bound['bytes']} B, {bound['flops']} flop); kernel at "
+                  f"{bound['flops'] / k_dev / 1e9:.1f} TFLOP/s, "
+                  f"{bound['bound_ms'] / k_dev:.3f} of its bound, {k_dev / l_dev:.2f}x SDPA")
+            routes[route] = dict(shape=f"{shape} {dt} causal", max_abs_err=errs[name], ms=ms,
+                                 plain_ms=plain_ms, device_ms=k_dev, plain_device_ms=p_dev,
+                                 library_ms=lib_ms, library_device_ms=l_dev, sdpa_err=err_lib,
+                                 **bound)
+            del q, k, v, out
+    routes["cuda_core"]["op_launches"] = op_counts["cuda_core"]
+    report["flash"] = {"case_errs": errs, **routes}
+    return routes
 
 
 # ---------------------------------------------------------------- phase 6
@@ -820,22 +900,25 @@ def phase_forward(dev, report) -> int:
     with torch.inference_mode():
         L.flash_attention = capture
         try:
-            flash_attention_cuda.launches = 0
+            reset_flash_counts(flash_attention_cuda)
             for _ in range(FWD_CALLS):
                 t0 = time.perf_counter()
                 logits, _ = model.forward(batch)
                 torch.cuda.synchronize()
                 walls.append((time.perf_counter() - t0) * 1e3)
-            launches = flash_attention_cuda.launches
+            counts = flash_counts(flash_attention_cuda)
         finally:
             L.flash_attention = flash_attention
+        launches = counts["tensor_core"]
         peak = torch.cuda.max_memory_allocated()
-        print(f"  flash kernel launches {launches} over {FWD_CALLS} forwards of "
+        print(f"  flash kernel launches {counts} over {FWD_CALLS} forwards of "
               f"{cfg.num_layers} layers; forward wall {walls[0]:.1f} ms (first), "
               f"{walls[1]:.1f} ms (second); peak allocated {peak / 1e9:.2f} GB")
-        if launches != FWD_CALLS * cfg.num_layers:
-            raise AssertionError(f"flash kernel launched {launches} times in {FWD_CALLS} "
-                                 f"forwards of {cfg.num_layers} layers")
+        want = FWD_CALLS * cfg.num_layers
+        if counts != {"all": want, "tensor_core": want, "cuda_core": 0}:
+            raise AssertionError(f"flash kernels launched {counts} times in {FWD_CALLS} bfloat16 "
+                                 f"forwards of {cfg.num_layers} layers: want the tensor-core "
+                                 f"kernel once a layer")
         if tuple(logits.shape) != (b, t, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"forward logits of shape {tuple(logits.shape)} not finite")
 
@@ -871,7 +954,7 @@ def phase_forward(dev, report) -> int:
     if rms_rel > FORWARD_RMS_REL or max_abs > FORWARD_MAX_ABS:
         raise AssertionError("flash route and dense route disagree beyond the stated tolerance")
     report["forward"] = {
-        "params": n_params, "init_s": init_s, "launches": launches, "forward_calls": FWD_CALLS,
+        "params": n_params, "init_s": init_s, "launches": counts, "forward_calls": FWD_CALLS,
         "wall_ms": walls, "events_ms": fwd_ms, "dense_events_ms": dense_ms,
         "peak_bytes": int(peak), "layer0_err": err0, "rms_rel": rms_rel, "max_abs": max_abs,
         "argmax_agree": agree, "breakdown": with_prof,
@@ -1531,7 +1614,8 @@ def phase_rmsnorm(dev, report) -> dict:
                   f"call (CUDA graph replay): kernel {k_dev:.4f} ms, plain {p_dev:.4f} ms, "
                   f"F.rms_norm {l_dev:.4f} ms; bound {bound['bound_ms']:.4f} ms "
                   f"({bound['bound_by']}; {bound['bytes']} B, {bound['flops']} flop); "
-                  f"max |kernel - F.rms_norm| {err_lib:.3e}")
+                  f"max |kernel - F.rms_norm| {err_lib:.3e}; device time kernel / F.rms_norm "
+                  f"{k_dev / l_dev:.3f}, kernel at {bound['bound_ms'] / k_dev:.3f} of its bound")
             times[name] = dict(shape=name, max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
                                device_ms=k_dev, plain_device_ms=p_dev, library_ms=lib_ms,
                                library_device_ms=l_dev, library_err=err_lib, **bound)
@@ -1546,9 +1630,11 @@ TRAIN_PATHS = {  # the training cells: (arch, layers kept or None for all, globa
     "train": ("qwen3-8b", 8, 2, 4096, 2),
     "ssm_train": ("mamba2-370m", None, 4, 4096, 2),
 }
-TRAIN_KERNELS = {  # the kernel each runs, its device names and its backward's profiler range
-    "train": ("flash_attention", FLASH_KERNEL_NAMES, "flash_attention.backward"),
-    "ssm_train": ("ssd_diag", SSD_KERNEL_NAMES, "ssd_diag.backward"),
+TRAIN_KERNELS = {  # the kernel each runs, its device names, its backward's profiler range
+    # and the route counter that must carry every launch (None: one route)
+    "train": ("flash_attention", FLASH_KERNEL_NAMES, "flash_attention.backward",
+              "tensor_core_launches"),
+    "ssm_train": ("ssd_diag", SSD_KERNEL_NAMES, "ssd_diag.backward", None),
 }
 # Step 1's cross-entropy at random initialization: about ln(V) + σ²/2 for
 # logits of spread σ about 1 (the unembedding's fan-in scaling of a
@@ -1645,7 +1731,7 @@ def phase_training(dev, report, path) -> int:
     from repro_torch.runtime.steps import init_train_state, make_grad_fn, make_train_step
 
     arch, layers, gbatch, t, mb = TRAIN_PATHS[path]
-    kname, device_names, backward_range = TRAIN_KERNELS[path]
+    kname, device_names, backward_range, route_attr = TRAIN_KERNELS[path]
     counters = kernel_counters()
     counter = counters[kname]
     spec = C.get(arch)
@@ -1690,8 +1776,11 @@ def phase_training(dev, report, path) -> int:
     step_fn = make_train_step(model, ex)
     steps = []  # per step: start and end events, launches of the path's kernel, wall seconds
 
+    def route_count():
+        return getattr(counter, route_attr) if route_attr else counter.launches
+
     def timed_step(state, batch):
-        launched = counter.launches
+        launched, routed = counter.launches, route_count()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         a.record()
@@ -1699,7 +1788,8 @@ def phase_training(dev, report, path) -> int:
         b.record()
         loss = float(m["loss"])  # waits for the step, as the loop does
         steps.append(dict(events=(a, b), launches=counter.launches - launched,
-                          wall_s=time.perf_counter() - t0, loss=loss))
+                          routed=route_count() - routed, wall_s=time.perf_counter() - t0,
+                          loss=loss))
         return state, m
 
     ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -1758,7 +1848,8 @@ def phase_training(dev, report, path) -> int:
     for i, (s, m) in enumerate(zip(steps, metrics)):
         label = f"step {i + 1}" if i < 3 else "step 3 after the restore"
         print(f"  {label}: loss {m['loss']:.6f} (ce {m['ce']:.6f}), grad norm "
-              f"{m['grad_norm']:.6f}, lr {m['lr']:.3e}; {s['launches']} {kname} launches; "
+              f"{m['grad_norm']:.6f}, lr {m['lr']:.3e}; {s['launches']} {kname} launches "
+              f"({s['routed']} {route_attr or 'of its kernel'}); "
               f"{ev_ms[i]:.1f} ms by CUDA events, {walls[i]:.1f} ms wall")
     print(f"  peak allocated {peak / 1e9:.2f} GB over steps 1-3; {tokens} tokens a step, "
           f"{tok_s:.1f} tokens/s (median wall of the steps after the first); checkpoint "
@@ -1782,8 +1873,9 @@ def phase_training(dev, report, path) -> int:
           f"with the checkpoint {parts[1]:.1f} s, restore and step 3 again {parts[2]:.1f} s, "
           f"profiled step {parts[3]:.1f} s (its trace summary {prof['summary_s']:.1f} s)")
 
-    if any(s["launches"] != per_step for s in steps):
-        raise AssertionError(f"{kname} launched {[s['launches'] for s in steps]} times a step; "
+    if any(s["launches"] != per_step or s["routed"] != per_step for s in steps):
+        raise AssertionError(f"{kname} launched {[s['launches'] for s in steps]} times a step, "
+                             f"{[s['routed'] for s in steps]} through {route_attr or 'its kernel'}; "
                              f"want {per_step} (2 x {cfg.num_layers} layers x {mb} microbatches)")
     if any(v for k, v in launched.items() if k != kname):
         raise AssertionError(f"the training path launched other kernels: {launched}")
@@ -1862,22 +1954,33 @@ def main(argv=None) -> int:
     card = card_line()
     print(f"phase 0: card {card}; torch {torch.__version__} CUDA {torch.version.cuda}; "
           f"allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    report = {"card": card}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:  # one nvcc per source, started together
+    with ThreadPoolExecutor(4) as pool:  # one nvcc per library, started together
         for f in [pool.submit(m.load) for m in (ei_kernel, fa_kernel, ssd_kernel, rn_kernel)]:
             f.result()
     print(f"  ei_argmax, flash_attention, ssd and rmsnorm kernels built and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
     for name in ("ei_argmax", "flash_attention", "ssd", "rmsnorm"):
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "built in" in line:
-                print(f"    {name}: {line.strip()}")
-    print(f"    flash_attention: {fa_kernel.load().flash_attention_smem_bytes(FWD_SHAPE[4])} "
-          f"bytes of dynamic shared memory per block at D={FWD_SHAPE[4]}")
+            if "Compiling entry function" in line:
+                print(f"    {name}: {kernel_name(line.split(chr(39))[1])}:")
+            elif "registers" in line or "spill" in line or "built in" in line:
+                print(f"    {name}:   {line.strip()}")
+    fa_lib = fa_kernel.load()
+    sass = sass_counts(fa_lib._name)
+    for fn, counts in sass.items():
+        print(f"    flash_attention SASS {fn}: {counts}")
+    tc = [c for fn, c in sass.items() if fn.startswith("flash_fwd_wgmma_kernel")]
+    if not tc or not all(c["HGMMA"] and c["UTMALDG"] for c in tc):
+        raise AssertionError(f"the tensor-core flash kernel lacks HGMMA or UTMALDG: {sass}")
+    report["sass"] = sass
+    print(f"    flash_attention: {fa_lib.flash_attention_smem_bytes(FWD_SHAPE[4])} (CUDA cores) "
+          f"and {fa_lib.flash_attention_wgmma_smem_bytes(FWD_SHAPE[4])} (tensor cores) bytes "
+          f"of dynamic shared memory per block at D={FWD_SHAPE[4]}")
     print(f"    ssd: {ssd_kernel.load().ssd_diag_smem_bytes(ssd_kernel.MAX_N)} bytes of dynamic "
           f"shared memory per block at N={ssd_kernel.MAX_N}")
 
-    report = {"card": card}
     failed = []
     times, fa_times, ssd_times, rn, launches = None, None, None, None, {}
     for name, phase in (
@@ -1940,24 +2043,34 @@ def main(argv=None) -> int:
         "bound_by": t["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this function
     } for path, t in times.items()]
+    # K2: the tensor-core kernel runs the bfloat16 paths (a training
+    # microbatch runs the forward's shape); the CUDA-core kernel's path is
+    # the float32 op, driven once in phase 5.
     kernels.extend({
-        "name": "flash_attention",
+        "name": name,
         "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "source": f"src/repro_torch/kernels/flash_attention/csrc/{src}",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:113",
-        "path": path,  # a training microbatch runs the forward's shape
-        "shape": fa_times["shape"],
-        "launches": launches[path],
-        "max_abs_err": fa_times["max_abs_err"],
-        "ms": fa_times["ms"],
-        "plain_ms": fa_times["plain_ms"],
-        "device_ms": fa_times["device_ms"],
-        "plain_device_ms": fa_times["plain_device_ms"],
-        "bound_ms": fa_times["bound_ms"],
-        "bound_by": fa_times["bound_by"],
-        "library_ms": fa_times["library_ms"],  # scaled_dot_product_attention
-        "library_device_ms": fa_times["library_device_ms"],
-    } for path in ("forward", "train"))
+        "path": path,
+        "shape": t["shape"],
+        "launches": n,
+        "max_abs_err": t["max_abs_err"],
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "device_ms": t["device_ms"],
+        "plain_device_ms": t["plain_device_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],  # scaled_dot_product_attention
+        "library_device_ms": t["library_device_ms"],
+    } for name, src, path, t, n in (
+        ("flash_attention_wgmma", "flash_attention_wgmma.cu", "forward",
+         fa_times["tensor_core"], launches["forward"]),
+        ("flash_attention_wgmma", "flash_attention_wgmma.cu", "train",
+         fa_times["tensor_core"], launches["train"]),
+        ("flash_attention", "flash_attention.cu", "op_float32",
+         fa_times["cuda_core"], fa_times["cuda_core"]["op_launches"]),
+    ))
     kernels.extend({
         "name": "ssd_diag",
         "route": "cuda",

@@ -1,13 +1,19 @@
-"""Host side of the hand-written CUDA flash-attention kernel (`csrc/flash_attention.cu`).
+"""Host side of the hand-written CUDA flash-attention kernels.
+
+Two kernels, built into one library: `csrc/flash_attention_wgmma.cu` runs
+bf16 inputs with D a multiple of 8 on the tensor cores (`wgmma`, TMA), and
+`csrc/flash_attention.cu` runs the rest (f32, and bf16 with D % 8 != 0) on
+the CUDA cores.  `route` chooses between them by dtype and D alone.
 
 `flash_attention_cuda` checks its tensors, builds the library at first use
-(`repro_torch.kernels.build`), launches the kernel on PyTorch's current
-stream and returns the (B,T,H,D) output in q's dtype, allocated with
-`torch.empty`; the kernel allocates nothing.  A failed build or launch
+(`repro_torch.kernels.build`), launches the route's kernel on PyTorch's
+current stream and returns the (B,T,H,D) output in q's dtype, allocated
+with `torch.empty`; the kernels allocate nothing.  A failed build or launch
 raises.
 
-``flash_attention_cuda.launches`` counts the calls that launched the
-kernel, so a run can show that its main path went through it.
+``flash_attention_cuda.launches`` counts the calls that launched a kernel,
+and ``.tensor_core_launches`` and ``.cuda_core_launches`` those of each
+route, so a run can show that its main path went through them.
 """
 
 from __future__ import annotations
@@ -15,23 +21,41 @@ from __future__ import annotations
 import ctypes
 import math
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.build import load_library
 
-__all__ = ["BLOCK_K", "BLOCK_Q", "MAX_D", "flash_attention_cuda", "load"]
+__all__ = ["BLOCK_K", "BLOCK_Q", "MAX_D", "WGMMA_BLOCK_K", "WGMMA_BLOCK_Q",
+           "flash_attention_cuda", "load", "route", "tiles"]
 
-_SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",)
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_SOURCES = (_CSRC / "flash_attention.cu", _CSRC / "flash_attention_wgmma.cu")
 _NAME = "flash_attention"
-BLOCK_Q = 64  # FA_BQ in the source
-BLOCK_K = 64  # FA_BK in the source
-MAX_D = 128  # FA_MAX_D in the source: the zoo's largest head_dim
+BLOCK_Q = 64  # FA_BQ in flash_attention.cu (the CUDA-core kernel)
+BLOCK_K = 64  # FA_BK
+WGMMA_BLOCK_Q = 128  # TC_BQ in flash_attention_wgmma.cu (the tensor-core kernel)
+WGMMA_BLOCK_K = 128  # TC_BK
+MAX_D = 128  # FA_MAX_D and TC_MAX_D: the zoo's largest head_dim
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+def route(dtype: torch.dtype, d: int) -> str:
+    """The kernel that takes inputs of ``dtype`` and head dim ``d``:
+    "tensor_core" for bfloat16 with d % 8 == 0 (its TMA rows are whole
+    16-byte words), "cuda_core" otherwise."""
+    return "tensor_core" if dtype == torch.bfloat16 and d % 8 == 0 else "cuda_core"
+
+
+def tiles(dtype: torch.dtype, d: int) -> Tuple[int, int]:
+    """(queries, keys) of a tile of the kernel that `route` selects."""
+    if route(dtype, d) == "tensor_core":
+        return WGMMA_BLOCK_Q, WGMMA_BLOCK_K
+    return BLOCK_Q, BLOCK_K
 
 
 def load() -> ctypes.CDLL:
@@ -41,17 +65,22 @@ def load() -> ctypes.CDLL:
         lib.flash_attention_launch.argtypes = (
             [_P] * 4 + [_I] * 7 + [ctypes.c_float, _I, _P])
         lib.flash_attention_launch.restype = _I
+        lib.flash_attention_wgmma_launch.argtypes = (
+            [_P] * 4 + [_I] * 6 + [ctypes.c_float, _I, _P])
+        lib.flash_attention_wgmma_launch.restype = _I
         lib.flash_attention_error_string.argtypes = [_I]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
-        lib.flash_attention_smem_bytes.argtypes = [_I]
-        lib.flash_attention_smem_bytes.restype = _I
-        for fn in (lib.flash_attention_block_q, lib.flash_attention_block_k,
-                   lib.flash_attention_max_d):
+        for fn in (lib.flash_attention_smem_bytes, lib.flash_attention_wgmma_smem_bytes):
+            fn.argtypes = [_I]
+            fn.restype = _I
+        caps = (lib.flash_attention_block_q, lib.flash_attention_block_k,
+                lib.flash_attention_max_d, lib.flash_attention_wgmma_block_q,
+                lib.flash_attention_wgmma_block_k, lib.flash_attention_wgmma_max_d)
+        for fn in caps:
             fn.argtypes = []
             fn.restype = _I
-        caps = (lib.flash_attention_block_q(), lib.flash_attention_block_k(),
-                lib.flash_attention_max_d())
-        if caps != (BLOCK_Q, BLOCK_K, MAX_D):
+        if tuple(fn() for fn in caps) != (BLOCK_Q, BLOCK_K, MAX_D,
+                                           WGMMA_BLOCK_Q, WGMMA_BLOCK_K, MAX_D):
             raise RuntimeError("flash_attention library caps disagree with kernel.py")
         lib._repro_bound = True
     return lib
@@ -94,17 +123,32 @@ def flash_attention_cuda(
 
     lib = load()
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tensor_core = route(q.dtype, D) == "tensor_core"
     with torch.cuda.device(q.device):
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], B, T, S, H, KV, D, float(scale), int(bool(causal)),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        if tensor_core:
+            # TMA reads from 16-byte aligned addresses; a view at an odd
+            # offset is copied to a fresh (aligned) tensor.
+            q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
+            err = lib.flash_attention_wgmma_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, T, S, H, KV, D, float(scale), int(bool(causal)), stream)
+        else:
+            err = lib.flash_attention_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                _DTYPES[q.dtype], B, T, S, H, KV, D, float(scale), int(bool(causal)), stream)
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err} ({msg})")
+        raise RuntimeError(f"flash_attention kernel launch failed ({route(q.dtype, D)} route): "
+                           f"CUDA error {err} ({msg})")
     flash_attention_cuda.launches += 1
+    if tensor_core:
+        flash_attention_cuda.tensor_core_launches += 1
+    else:
+        flash_attention_cuda.cuda_core_launches += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.tensor_core_launches = 0
+flash_attention_cuda.cuda_core_launches = 0

@@ -2,20 +2,24 @@
 
 Port of `repro/kernels/flash_attention/ops.py`.
 
-  * A CUDA tensor launches the hand-written kernel
-    (`kernel.flash_attention_cuda`) or raises.  The kernel masks the ragged
-    edge of T and S itself, so nothing is padded: its result is the
-    reference's ``out[:, :t]`` of the padded call.
-  * A CPU tensor takes `flash_attention_plain`: the kernel's online softmax
-    over key tiles, in torch, with the same -1e30 sentinel, the same
-    skipping of key tiles wholly in the future of a query tile, and the
-    same 1e-30 floor on the denominator.
+  * A CUDA tensor launches a hand-written kernel
+    (`kernel.flash_attention_cuda`: the tensor-core kernel for bfloat16
+    with D % 8 == 0, the CUDA-core kernel otherwise) or raises.  The
+    kernels mask the ragged edge of T and S themselves, so nothing is
+    padded: the result is the reference's ``out[:, :t]`` of the padded call.
+  * A CPU tensor takes `flash_attention_plain`: the kernels' online
+    softmax over key tiles, in torch, with the same -1e30 sentinel, the
+    same skipping of key tiles wholly in the future of a query tile, and
+    the same 1e-30 floor on the denominator.  Both kernels multiply the
+    float32 probabilities into V (the tensor-core kernel as two bfloat16
+    terms, about 16 bits), and so does the plain version.
   * The backward is autograd through `ref.attention_ref`, as the
     reference's custom VJP is the oracle's VJP.
 
-The kernel is built for 64 x 64 tiles (`kernel.BLOCK_Q`, `kernel.BLOCK_K`);
-the plain version takes the tile sizes as ``block_q`` and ``block_k``, and
-its result does not depend on them beyond float32 rounding.
+The plain version takes its tiles from `kernel.tiles` (128 x 128 on the
+tensor-core route, 64 x 64 on the CUDA-core one) unless ``block_q`` and
+``block_k`` are given; its result does not depend on them beyond float32
+rounding.
 """
 
 from __future__ import annotations
@@ -25,11 +29,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention.kernel import (
-    BLOCK_K,
-    BLOCK_Q,
-    flash_attention_cuda,
-)
+from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda, tiles
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 __all__ = ["flash_attention", "flash_attention_plain"]
@@ -44,11 +44,14 @@ def flash_attention_plain(
     *,
     causal: bool = True,
     sm_scale: Optional[float] = None,
-    block_q: int = BLOCK_Q,
-    block_k: int = BLOCK_K,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
 ) -> torch.Tensor:
-    """The kernel's arithmetic in plain PyTorch, on any device: (B,T,H,D) in q's dtype."""
+    """The kernels' arithmetic in plain PyTorch, on any device: (B,T,H,D) in q's dtype."""
     b, t, h, d = q.shape
+    tile_q, tile_k = tiles(q.dtype, d)
+    block_q = tile_q if block_q is None else block_q
+    block_k = tile_k if block_k is None else block_k
     s, kv = k.shape[1], k.shape[2]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     f32 = torch.float32

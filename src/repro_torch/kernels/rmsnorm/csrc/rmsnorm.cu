@@ -16,6 +16,13 @@
 //   * up to D = 1024 a warp owns a row (8 rows to a 256-thread block); above
 //     that a block owns a row: 256 threads up to D = 8192, 1024 threads up
 //     to D = 32768;
+//   * bf16 rows of 1024 < D <= 8192 in 16-byte words are a warp's too, 4
+//     rows to a 128-thread block: each lane issues all its loads (up to 16
+//     words to D = 4096, 32 to 8192) before it uses the first, so an SM has
+//     many bytes in flight, and the sum needs only warp shuffles, so no
+//     block barrier stands between the sum and the store; at 160-220
+//     registers a thread, blocks of 4 rows let three share an SM where
+//     blocks of 8 would fit one;
 //   * the row is read once, in 16-byte words (4 f32 or 8 bf16) when D and
 //     the pointers allow it, and kept in registers (at most 32 values a
 //     thread) from the sum of squares to the store;
@@ -24,8 +31,8 @@
 //   * nothing is padded: the TPU kernel pads rows to its 256-row tile, and
 //     the real rows of its result are these.
 //
-// Left for later: several rows a block for large D (fewer, fuller waves),
-// and TMA loads of the next row while this one is stored.
+// Left for later: the same for f32 (its block-per-row variant reaches 88 %
+// of its bound), and TMA loads of the next row while this one is stored.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -36,6 +43,8 @@
 #define RN_MAX_PER_THREAD 32      // row values a thread keeps in registers
 #define RN_WARP_MAX_D 1024        // a warp owns a row up to here
 #define RN_MAX_D (RN_MAX_PER_THREAD * RN_BIG_THREADS)
+#define RN_WARP_BF16_MAX_D 8192   // bf16 rows in 16-byte words: a warp's up to here
+#define RN_BF16_THREADS 128       // and 4 such rows to a block
 
 namespace {
 
@@ -144,6 +153,57 @@ __global__ void __launch_bounds__(THREADS) rmsnorm_kernel(
   }
 }
 
+// bf16 rows in 16-byte words, a warp to a row, THREADS / 32 rows a block:
+// lane l holds words l, l + 32, ... (at most WORDS), raw, from the loads
+// (all issued first) to the store.
+template <int WORDS, int THREADS>
+__global__ void __launch_bounds__(THREADS) rmsnorm_bf16_warp_kernel(
+    const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale,
+    __nv_bfloat16* __restrict__ y, long long rows, int D, float eps) {
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
+  if (row >= rows) return;  // the whole warp
+  const int nword = D / 8;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + row * (long long)D);
+  uint4 w[WORDS];
+#pragma unroll
+  for (int k = 0; k < WORDS; ++k) {
+    const int p = lane + 32 * k;
+    if (p < nword) w[k] = __ldcs(xr + p);  // read once: stream past the caches
+  }
+  float ss = 0.f;
+#pragma unroll
+  for (int k = 0; k < WORDS; ++k) {
+    if (lane + 32 * k < nword) {
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&w[k]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float v = __bfloat162float(e[j]);
+        ss += v * v;
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+
+  const float inv = 1.0f / sqrtf(ss / (float)D + eps);
+  uint4* yr = reinterpret_cast<uint4*>(y + row * (long long)D);
+  const float4* sc = reinterpret_cast<const float4*>(scale);
+#pragma unroll
+  for (int k = 0; k < WORDS; ++k) {
+    const int p = lane + 32 * k;
+    if (p < nword) {
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&w[k]);
+      const float4 s0 = sc[2 * p], s1 = sc[2 * p + 1];
+      const float sv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+      float o[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) o[j] = __bfloat162float(e[j]) * inv * sv[j];
+      store_pack<__nv_bfloat16, 8>(reinterpret_cast<__nv_bfloat16*>(&yr[p]), o);
+    }
+  }
+}
+
 template <typename T, int VEC>
 cudaError_t launch_typed(const void* x, const float* scale, void* y,
                          long long rows, int D, float eps,
@@ -174,8 +234,26 @@ cudaError_t launch_vec(const void* x, const float* scale, void* y,
   constexpr int VEC = Word<T>::VEC;
   const bool aligned = D % VEC == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(y) % 16 == 0;
-  if (aligned) return launch_typed<T, VEC>(x, scale, y, rows, D, eps, stream);
-  return launch_typed<T, 1>(x, scale, y, rows, D, eps, stream);
+  if (!aligned) return launch_typed<T, 1>(x, scale, y, rows, D, eps, stream);
+  if constexpr (VEC == 8) {  // bf16
+    if (D > RN_WARP_MAX_D && D <= RN_WARP_BF16_MAX_D &&
+        reinterpret_cast<uintptr_t>(scale) % 16 == 0) {
+      constexpr int ROWS = RN_BF16_THREADS / 32;
+      const long long blocks = (rows + ROWS - 1) / ROWS;
+      if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+      const __nv_bfloat16* xt = static_cast<const __nv_bfloat16*>(x);
+      __nv_bfloat16* yt = static_cast<__nv_bfloat16*>(y);
+      if (D <= 4096) {
+        rmsnorm_bf16_warp_kernel<16, RN_BF16_THREADS>
+            <<<(unsigned)blocks, RN_BF16_THREADS, 0, stream>>>(xt, scale, yt, rows, D, eps);
+      } else {
+        rmsnorm_bf16_warp_kernel<32, RN_BF16_THREADS>
+            <<<(unsigned)blocks, RN_BF16_THREADS, 0, stream>>>(xt, scale, yt, rows, D, eps);
+      }
+      return cudaGetLastError();
+    }
+  }
+  return launch_typed<T, VEC>(x, scale, y, rows, D, eps, stream);
 }
 
 }  // namespace

@@ -25,6 +25,7 @@ _SOURCES = (Path(__file__).resolve().parent / "csrc" / "rmsnorm.cu",)
 _NAME = "rmsnorm"
 MAX_D = 32768  # RN_MAX_D in the source: 32 values a thread, 1024 threads a row
 WARP_MAX_D = 1024  # RN_WARP_MAX_D: a warp owns a row up to here, a block above
+# (bf16 rows in 16-byte words: a warp's up to D = 8192, RN_WARP_BF16_MAX_D)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p

@@ -111,16 +111,30 @@ def qkv(dev, seed, b, t, h, kv, d, dtype, s=None):
                  .to(dev, dtype) for shape in ((b, t, h, d), (b, s, kv, d), (b, s, kv, d)))
 
 
+def fa_counts():
+    fa = fa_kernel.flash_attention_cuda
+    return fa.launches, fa.tensor_core_launches, fa.cuda_core_launches
+
+
+def fa_launched(before, route):
+    """The launch counts after one call that took ``route``."""
+    n, tc, cc = before
+    return (n + 1, tc + (route == "tensor_core"), cc + (route == "cuda_core"))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,t,h,kv,d,causal", FA_SHAPES)
 def test_flash_kernel_matches_plain_version(dev, b, t, h, kv, d, causal, dtype):
+    """float32 takes the CUDA-core kernel, bfloat16 (every D here is a
+    multiple of 8) the tensor-core one."""
     q, k, v = qkv(dev, t * h + d, b, t, h, kv, d, dtype)
-    before = fa_kernel.flash_attention_cuda.launches
+    before = fa_counts()
     out = flash_attention(q, k, v, causal)
     plain = flash_attention_plain(q, k, v, causal=causal)
     ref = attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert fa_kernel.flash_attention_cuda.launches == before + 1
+    route = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+    assert fa_counts() == fa_launched(before, route)
     assert out.dtype == dtype and out.shape == q.shape
     assert bool(torch.isfinite(out).all())
     assert_close(plain.float().cpu().numpy(), out.float().cpu().numpy(), **FA_TOL[dtype],
@@ -137,6 +151,58 @@ def test_flash_kernel_long_ragged_and_large_logits(dev):
     big = torch.full((1, 128, 1, 64), 10.0, device=dev)
     out = flash_attention(big, big, torch.randn(1, 128, 1, 64, device=dev), True)
     assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.parametrize("t,s,d,causal", [
+    (4096, 4096, 128, True),   # the Qwen3-8B forward's shape, with H=32 and KV=8
+    (200, 333, 128, False),    # S > T, both ragged
+    (333, 200, 64, True),      # S < T, causal: the late queries see every key
+    (77, 77, 128, True),       # ragged T at D = 128, one partial tile
+    (1000, 1000, 96, True),    # ragged T, D between the two tile widths
+    (130, 130, 8, False),      # the smallest D the tensor-core kernel takes
+])
+def test_flash_tensor_core_kernel_matches_plain_version(dev, t, s, d, causal):
+    h, kv = (32, 8) if t == 4096 else (4, 2)
+    q, k, v = qkv(dev, t + s + d, 1, t, h, kv, d, torch.bfloat16, s=s)
+    before = fa_counts()
+    out = flash_attention(q, k, v, causal)
+    plain = flash_attention_plain(q, k, v, causal=causal)
+    ref = attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_counts() == fa_launched(before, "tensor_core")
+    assert out.shape == q.shape and bool(torch.isfinite(out).all())
+    assert_close(plain.float().cpu().numpy(), out.float().cpu().numpy(),
+                 **FA_TOL[torch.bfloat16], what="kernel vs plain")
+    assert_close(ref.float().cpu().numpy(), out.float().cpu().numpy(),
+                 **FA_TOL[torch.bfloat16], what="kernel vs attention_ref")
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 12, "cuda_core"),
+    (torch.bfloat16, 4, "cuda_core"), (torch.float32, 64, "cuda_core"),
+    (torch.float32, 12, "cuda_core"),
+], ids=["bf16-d64", "bf16-d12", "bf16-d4", "f32-d64", "f32-d12"])
+def test_flash_route_by_dtype_and_head_dim(dev, dtype, d, route):
+    """float32, and bfloat16 with D % 8 != 0, stay on the CUDA-core kernel."""
+    assert fa_kernel.route(dtype, d) == route
+    q, k, v = qkv(dev, d, 2, 150, 4, 2, d, dtype)
+    before = fa_counts()
+    out = flash_attention(q, k, v, True)
+    plain = flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert fa_counts() == fa_launched(before, route)
+    assert_close(plain.float().cpu().numpy(), out.float().cpu().numpy(), **FA_TOL[dtype])
+
+
+def test_flash_tensor_core_kernel_reads_unaligned_views(dev):
+    """A contiguous view 16-byte misaligned for TMA is copied, not refused."""
+    q, k, v = qkv(dev, 5, 1, 128, 4, 2, 64, torch.bfloat16)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
+    qv = buf[1:].view(q.shape)
+    qv.copy_(q)
+    assert qv.data_ptr() % 16 != 0 and qv.is_contiguous()
+    out = fa_kernel.flash_attention_cuda(qv, k, v)
+    assert torch.equal(out, fa_kernel.flash_attention_cuda(q, k, v))
 
 
 def test_flash_kernel_rejects_what_it_cannot_take(dev):
@@ -168,8 +234,11 @@ def test_model_forward_launches_flash_once_per_layer(dev):
     tokens = torch.randint(0, 512, (2, 256), generator=torch.Generator().manual_seed(0))
     with torch.inference_mode():
         before = fa_kernel.flash_attention_cuda.launches
+        before_cc = fa_kernel.flash_attention_cuda.cuda_core_launches
         logits, _ = model.forward({"tokens": tokens})
         assert fa_kernel.flash_attention_cuda.launches == before + cfg.num_layers
+        # float32 compute: the CUDA-core kernel
+        assert fa_kernel.flash_attention_cuda.cuda_core_launches == before_cc + cfg.num_layers
         ref, _ = dense.forward({"tokens": tokens})
         cache = model.init_cache(2, 300)
         model.prefill({"tokens": tokens}, cache)
@@ -264,7 +333,11 @@ def test_ssm_model_launches_ssd_once_per_layer(dev):
 RN_SHAPES = [  # (x shape, dtype): tests/test_kernels.py's, nd, each launch mode, unaligned D
     ((256, 64), torch.float32), ((300, 128), torch.float32), ((512, 384), torch.bfloat16),
     ((64, 1024), torch.float32), ((2, 7, 96), torch.float32),
-    ((33, 4096), torch.float32), ((17, 4096), torch.bfloat16),  # a block per row
+    ((33, 4096), torch.float32),  # a block per row
+    ((17, 4096), torch.bfloat16), ((16384, 4096), torch.bfloat16),  # bf16: a warp per row,
+    ((16383, 4096), torch.bfloat16),  # 4 rows a block, the last block ragged
+    ((9, 6144), torch.bfloat16), ((5, 8192), torch.bfloat16),  # 32 words a lane
+    ((3, 12288), torch.bfloat16),  # bf16 above 8192: a block per row
     ((5, 12288), torch.float32),  # 1024 threads per row
     ((9, 100), torch.bfloat16), ((7, 1030), torch.float32),  # D off the 16-byte words
 ]

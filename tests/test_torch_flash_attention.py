@@ -12,8 +12,14 @@ Gradients through the port's `autograd.Function` are held against the
 reference's custom VJP at atol 1e-3, the reference's own tolerance for its
 VJP against the oracle's.
 
-The CUDA kernel itself runs only on the card: `tests/test_torch_cuda.py`
-holds it against the plain version there.
+The plain version follows the kernel that the dtype and D select
+(`kernel.route`): its default tiles are that kernel's, and on both routes
+it multiplies the float32 probabilities into V (the tensor-core kernel
+feeds them to the bfloat16 tensor cores as two terms, about 16 bits), so a
+bfloat16 input rounds only the output.
+
+The CUDA kernels themselves run only on the card: `tests/test_torch_cuda.py`
+holds them against the plain version there.
 """
 
 import types
@@ -45,6 +51,7 @@ SHAPES = [  # (b, t, h, kv, d, causal), as in tests/test_kernels.py
 ]
 F32 = dict(rtol=1e-4, atol=2e-5)
 BF16 = dict(rtol=0.0, atol=2e-2)
+BF16_SHAPES = SHAPES + [(1, 1024, 8, 2, 128, True)]  # and a longer head_dim-128 causal case
 
 
 def qkv(seed, b, t, h, kv, d):
@@ -60,8 +67,13 @@ def ref_kernel(q, k, v, causal, dtype=jnp.float32):
     return np.asarray(out.astype(jnp.float32))
 
 
-def ref_oracle(q, k, v, causal):
-    return np.asarray(ref_ref.attention_ref(*(jnp.asarray(a) for a in (q, k, v)), causal=causal))
+def ref_oracle(q, k, v, causal, dtype=jnp.float32):
+    out = ref_ref.attention_ref(*(jnp.asarray(a).astype(dtype) for a in (q, k, v)), causal=causal)
+    return np.asarray(out.astype(jnp.float32))
+
+
+def bf16(*arrays):
+    return tuple(torch.from_numpy(a).to(torch.bfloat16) for a in arrays)
 
 
 @pytest.mark.parametrize("b,t,h,kv,d,causal", SHAPES)
@@ -76,6 +88,53 @@ def test_plain_version_matches_reference(b, t, h, kv, d, causal):
     assert_close(ref_oracle(q, k, v, causal), plain, **F32, what="plain vs reference oracle")
     assert_close(ref_oracle(q, k, v, causal), oracle, **F32, what="port oracle")
     assert np.array_equal(op, plain)  # the CPU dispatch is the plain version
+
+
+@pytest.mark.parametrize("b,t,h,kv,d,causal", BF16_SHAPES)
+def test_bf16_plain_version_matches_reference(b, t, h, kv, d, causal):
+    """bfloat16 inputs take the tensor-core route's tiles; the plain version
+    stays within the reference's bfloat16 limit of its kernel (interpreted)
+    and its oracle, both run on the same bfloat16 inputs."""
+    q, k, v = qkv(t * h + d, b, t, h, kv, d)
+    tq, tk, tv = bf16(q, k, v)
+    assert port_kernel.route(tq.dtype, d) == "tensor_core"
+    plain = port_ops.flash_attention_plain(tq, tk, tv, causal=causal)
+    assert plain.dtype == torch.bfloat16
+    args = (tq.float().numpy(), tk.float().numpy(), tv.float().numpy(), causal)
+    assert_close(ref_kernel(*args, jnp.bfloat16), plain.float().numpy(), **BF16,
+                 what="bf16 plain vs reference kernel")
+    assert_close(ref_oracle(*args, jnp.bfloat16), plain.float().numpy(), **BF16,
+                 what="bf16 plain vs reference oracle")
+
+
+@pytest.mark.parametrize("d", [32, 48, 128])
+def test_bf16_plain_version_rounds_only_the_output(d):
+    """On the tensor-core route the probabilities stay float32 into P.V (the
+    kernel splits them into two bfloat16 terms, exact to about 2^-17): the
+    bfloat16 plain version is the float32 computation on the same values,
+    on the same tiles, rounded once at the end, bit for bit."""
+    tq, tk, tv = bf16(*qkv(d, 1, 200, 4, 2, d))
+    out = port_ops.flash_attention_plain(tq, tk, tv)
+    f32 = port_ops.flash_attention_plain(tq.float(), tk.float(), tv.float(),
+                                         block_q=port_kernel.WGMMA_BLOCK_Q,
+                                         block_k=port_kernel.WGMMA_BLOCK_K)
+    assert torch.equal(out, f32.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype,d,route,tiles", [
+    (torch.bfloat16, 64, "tensor_core", (128, 128)),
+    (torch.bfloat16, 48, "tensor_core", (128, 128)),
+    (torch.bfloat16, 12, "cuda_core", (64, 64)),  # D % 8 != 0
+    (torch.float32, 64, "cuda_core", (64, 64)),
+    (torch.float32, 128, "cuda_core", (64, 64)),
+])
+def test_plain_version_takes_the_selected_kernels_tiles(dtype, d, route, tiles):
+    assert port_kernel.route(dtype, d) == route
+    assert port_kernel.tiles(dtype, d) == tiles
+    q, k, v = (x.to(dtype) for x in (torch.from_numpy(a) for a in qkv(3, 1, 300, 4, 2, d)))
+    default = port_ops.flash_attention_plain(q, k, v)
+    explicit = port_ops.flash_attention_plain(q, k, v, block_q=tiles[0], block_k=tiles[1])
+    assert torch.equal(default, explicit)
 
 
 @pytest.mark.parametrize("block_q,block_k", [(64, 64), (128, 128), (32, 96)])
@@ -139,4 +198,5 @@ def test_cuda_tensor_never_reaches_plain_version(monkeypatch):
     q = torch.zeros((1, 128, 2, 32))
     with pytest.raises(ValueError):
         port_kernel.flash_attention_cuda(q, q, q)
-    assert port_kernel.flash_attention_cuda.launches == 0
+    fa = port_kernel.flash_attention_cuda
+    assert (fa.launches, fa.tensor_core_launches, fa.cuda_core_launches) == (0, 0, 0)
