@@ -11,10 +11,16 @@ Phases, each reported on its own lines:
      `src/repro_torch/kernels/flash_attention/csrc/`,
      the SSD intra-chunk term from `src/repro_torch/kernels/ssd/csrc/`,
      RMSNorm from `src/repro_torch/kernels/rmsnorm/csrc/`), one `nvcc`
-     each, started together;
-  1. the kernel against its plain PyTorch version on the card, over the
-     shapes of the main path and the edge cases, with both timed at the
-     shape of each of the paths below (`cuda_time_ms` and `graph_ms`);
+     each, started together, with the registers, spills and `cuobjdump`
+     instruction counts (HGMMA, UTMALDG, LDL, STL) of the EI/argmax, flash
+     and SSD kernels;
+  1. the EI/argmax kernel against its plain PyTorch version on the card,
+     over the shapes of the main path, each register bucket at its edge,
+     B = 129, 256 and 1000 and d = 33 and 64 (the blocked route), two
+     crowded pools and the edge cases, some also through the blocked route
+     forced, with both timed at the shape of each of the paths below and
+     at the catalog with B = 256 (`cuda_time_ms` and `graph_ms`), and the
+     blocked route forced timed beside the register route where that ran;
   2. the paper's pipeline on the card (profiling → memory model → split →
      two-phase GP+EI search) for the 16 Table II jobs: fused-layout Ruya
      and CherryPick held against the feature layout and `run_ruya`, and
@@ -41,9 +47,11 @@ Phases, each reported on its own lines:
      argmax under the tie rule of `repro_torch.testing`;
   8. the SSD intra-chunk kernel against its plain PyTorch version on the
      card, at the shapes of `tests/test_kernels.py`, the smoke model's
-     chunk, a ragged shape, and the shapes of phases 9 and 10 (B and C as
-     head-broadcast views there, as the model passes them), timed at the
-     latter two;
+     chunk, ragged shapes, Q = 512 with N = 192 and P = 96, B and C per
+     group (G = 1, 2 and 3, as the model passes them), bfloat16-valued
+     inputs, and the shapes of phases 9, 10 and 13, timed there with
+     bfloat16-valued x, B and C (as the model gives them) and with float32
+     values;
   9. the mamba2-370m teacher-forced forward at full width and depth (48
      layers, float32 parameters drawn on the card from a seed, bfloat16
      compute, B=1, T=32768), held against the same parameters run through
@@ -117,6 +125,7 @@ GiB = 1024.0**3
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 PEAK_BF16_PER_S = 989e12  # tensor cores, dense
+PEAK_TF32_PER_S = 495e12  # tensor cores, dense
 
 JOB_ORDER = [  # Table II row order (benchmarks/common.py)
     "naivebayes/spark/bigdata", "naivebayes/spark/huge",
@@ -140,8 +149,39 @@ KERNEL_CASES = [  # (name, n, d, capacity B, observed k)
     ("d=1", 200, 1, 12, 5),
     ("d=2", 300, 2, 8, 4),
     ("B=2", 130, 6, 2, 2),
-    ("B=128 cap", 2000, 4, 128, 100),
+    ("B=16, bucket edge", 500, 4, 16, 12),
+    ("B=32, bucket edge", 800, 5, 32, 30),
+    ("B=64, bucket edge", 1200, 6, 64, 50),
+    # Past the register buckets, k < B so that the padded slots are live.
+    ("B=65, blocked", 1200, 6, 65, 50),
+    ("B=128, the old cap", 2000, 4, 128, 100),
+    ("B=129, blocked", 3000, 5, 129, 100),
+    ("B=256, blocked", 4000, 6, 256, 160),
+    ("B=1000, blocked", 5000, 6, 1000, 150),
+    ("d=33, blocked", 2000, 33, 24, 20),
+    ("d=64, blocked", 3000, 64, 40, 30),
 ]
+# Crowded pools: so many observations among the candidates that 1 - |v|^2
+# cancels, and a float32 evaluation of the posterior strays from a float64
+# one by more than EI_RTOL through the float32 triangular solve, whatever
+# its order (the kernel's row-by-row substitution, torch's blocked solve),
+# so two such evaluations part by more than EI_RTOL by themselves.  The
+# kernel and the plain version sum mean and |v|^2 in float64
+# (`tile.ei_from_sqdist`), which leaves only the solve's error.  So each is
+# held to the float64 evaluation: its pick a tie of that argmax under the
+# EI tolerance, and its max EI within CROWDED_RTOL = 10 EI_RTOL, twice the
+# float32 solve's error of about 1e-3 at these pools (this phase prints
+# both distances).
+# (seed, name, n, d, capacity B, observed k)
+CROWDED_CASES = [(12, "B=256, 200 observed", 4000, 6, 256, 200),
+                 (13, "B=1000, 900 observed", 5000, 6, 1000, 900),
+                 (17, "B=256, 200 observed", 4000, 6, 256, 200),
+                 (18, "B=1000, 900 observed", 5000, 6, 1000, 900)]
+CROWDED_RTOL = 2e-3
+# Cases run once more through the blocked route, which every register-route
+# shape can also take: the two routes compute the same substitution.
+BLOCKED_TOO = ("catalog", "B=16, bucket edge", "B=64, bucket edge")
+EI_KERNEL_NAMES = ("ei_reg_kernel", "ei_blocked_kernel")  # the EI/argmax kernels' device names
 # The kernel's shape on each path that runs it: (n, d, capacity B,
 # observed k) of the timing case.
 PATH_SHAPES = {
@@ -149,6 +189,9 @@ PATH_SHAPES = {
     "catalog": (CATALOG_N, CATALOG_D, CATALOG_B, CATALOG_B),
     "fixture": (512, 5, 10, 7),
 }
+# Timed beside the paths, on no path of its own: the catalog at a budget of
+# 256 trials, which the blocked route takes.
+EXTRA_SHAPES = {"catalog_b256": (CATALOG_N, CATALOG_D, 256, 256)}
 
 
 def card_line() -> str:
@@ -329,19 +372,20 @@ def tail_args(c):
             c.y_std, c.best)
 
 
-def full_ei(c):
+def full_ei(c, dtype=None):
+    """The EI of every candidate through the plain tail (in ``dtype`` if given)."""
     from repro_torch.core.gp import pairwise_sqdist
     from repro_torch.kernels.ei_argmax.tile import ei_from_sqdist
 
-    return ei_from_sqdist(
-        pairwise_sqdist(c.feats, c.enc), c.pm, c.alpha, c.chol, c.ls,
-        c.y_mean, c.y_std, c.best, c.mask,
-    )[0].cpu().numpy()
+    a = [t.to(dtype) if dtype is not None and t.is_floating_point() else t for t in tail_args(c)]
+    return ei_from_sqdist(pairwise_sqdist(a[2], a[0]), *a[3:], a[1])[0].cpu().numpy()
 
 
 def phase_kernel(dev, report) -> dict:
     import torch
 
+    from repro_torch.kernels.ei_argmax import kernel as ei_kernel
+    from repro_torch.kernels.ei_argmax.kernel import ei_argmax_cuda
     from repro_torch.kernels.ei_argmax.ops import ei_argmax, ei_argmax_plain
     from repro_torch.testing import EI_ATOL, EI_RTOL, assert_close, pick_agrees
 
@@ -350,10 +394,18 @@ def phase_kernel(dev, report) -> dict:
           f"within that tolerance)")
     errs = {}
 
-    def check(name, c, *, plain_tile=None, expect_idx=None):
-        k_idx, k_val = ei_argmax(*tail_args(c))
+    def blocked(c):  # the kernel's blocked route forced, as `ei_argmax` calls the kernel
+        scal = torch.stack([c.ls, c.y_mean, c.y_std, c.best], -1)
+        return ei_kernel._launch(c.enc, c.mask, c.feats, c.pm, c.alpha, c.chol, scal, 0.0,
+                                 ei_kernel._BLOCKED)
+
+    def check(name, c, *, plain_tile=None, expect_idx=None, route=None):
+        before = ei_argmax_cuda.launches
+        k_idx, k_val = ei_argmax(*tail_args(c)) if route is None else route(c)
         p_idx, p_val = ei_argmax_plain(*tail_args(c), tile=plain_tile)
         torch.cuda.synchronize()
+        if ei_argmax_cuda.launches != before + 1:
+            raise AssertionError(f"{name}: {ei_argmax_cuda.launches - before} launches counted")
         ki, pi = int(k_idx[0]), int(p_idx[0])
         kv, pv = float(k_val[0]), float(p_val[0])
         err = assert_close(pv, kv, rtol=EI_RTOL, atol=EI_ATOL, what=f"{name} max EI")
@@ -362,11 +414,37 @@ def phase_kernel(dev, report) -> dict:
             raise AssertionError(f"{name}: kernel pick {ki} vs plain {pi}, not a tie")
         if expect_idx is not None and ki != expect_idx:
             raise AssertionError(f"{name}: kernel pick {ki}, expected {expect_idx}")
-        print(f"  {name:26s} kernel ({ki}, {kv!r})  plain ({pi}, {pv!r})  |dEI| {err:.3e}")
+        print(f"  {name:46s} kernel ({ki}, {kv!r})  plain ({pi}, {pv!r})  |dEI| {err:.3e}")
         return ki, kv
 
     for i, (name, n, d, cap, k) in enumerate(KERNEL_CASES):
-        check(f"{name} n={n} d={d} B={cap}", kernel_case(dev, i, n, d, cap, k))
+        c = kernel_case(dev, i, n, d, cap, k)
+        check(f"{name} n={n} d={d} B={cap}", c)
+        if name in BLOCKED_TOO:
+            check(f"{name}, blocked route", c, route=blocked)
+
+    for seed, name, n, d, cap, k in CROWDED_CASES:
+        c = kernel_case(dev, seed, n, d, cap, k)
+        before = ei_argmax_cuda.launches
+        k_idx, k_val = ei_argmax(*tail_args(c))
+        p_idx, p_val = ei_argmax_plain(*tail_args(c))
+        torch.cuda.synchronize()
+        if ei_argmax_cuda.launches != before + 1:
+            raise AssertionError(f"{name}: {ei_argmax_cuda.launches - before} launches counted")
+        e64 = full_ei(c, torch.float64)
+        j, exact = int(np.argmax(e64)), float(np.max(e64))
+        ki, kv, pi, pv = int(k_idx[0]), float(k_val[0]), int(p_idx[0]), float(p_val[0])
+        for who, pick, val in (("kernel", ki, kv), ("plain", pi, pv)):
+            if not pick_agrees(j, pick, e64):
+                raise AssertionError(f"{name} seed {seed}: {who} pick {pick} vs float64 {j}, "
+                                     f"not a tie")
+            assert_close(exact, val, rtol=CROWDED_RTOL, atol=EI_ATOL,
+                         what=f"{name} seed {seed} {who} max EI vs float64")
+        errs[f"{name} seed {seed}"] = abs(kv - exact)
+        print(f"  {name + f' seed {seed} n={n} d={d}':46s} kernel ({ki}, {kv!r})  plain ({pi}, "
+              f"{pv!r})  float64 ({j}, {exact!r}): |kernel - float64| "
+              f"{abs(kv - exact) / exact:.2e}, |plain - float64| {abs(pv - exact) / exact:.2e}, "
+              f"|kernel - plain| {abs(kv - pv) / exact:.2e} (relative)")
 
     # A cross-tile tie: a clone of the winning column three kernel blocks
     # away computes the same bits; the lower index must win.
@@ -391,7 +469,7 @@ def phase_kernel(dev, report) -> dict:
         raise AssertionError(f"garbage in padded slots moved the kernel: {kc} vs {kd}")
 
     times = {}
-    for path, (n, d, cap, k) in PATH_SHAPES.items():
+    for path, (n, d, cap, k) in {**PATH_SHAPES, **EXTRA_SHAPES}.items():
         c = kernel_case(dev, 7, n, d, cap, k)
         check(f"{path} timing case", c)
         ms = cuda_time_ms(lambda: ei_argmax(*tail_args(c)))
@@ -408,9 +486,16 @@ def phase_kernel(dev, report) -> dict:
               f"{p_dev:.4f} ms; "
               f"bound {bound['bound_ms']:.6f} ms ({bound['bound_by']}; "
               f"{bound['bytes']} B, {bound['flops']} flop)")
+        if ei_kernel.load().ei_argmax_tile(n, d, cap, ei_kernel._REGISTERS) > 0:
+            # The register route ran: the blocked route, which also takes
+            # this shape, timed beside it.
+            b_dev = graph_ms(lambda: blocked(c))
+            times[path]["blocked_device_ms"] = b_dev
+            print(f"    the blocked route forced at this shape: {b_dev:.4f} ms device "
+                  f"({b_dev / k_dev:.2f}x the register route's)")
     report["kernel_max_abs_err"] = max(errs.values())
     report["kernel_times"] = times
-    return times
+    return {path: t for path, t in times.items() if path in PATH_SHAPES}
 
 
 # ---------------------------------------------------------------- phase 2
@@ -627,7 +712,7 @@ def step_breakdown(dev, space, trace, steps: int = 10) -> dict:
     for name, t in _device_events(events):
         busy += t
         by_name[name[:60]] = by_name.get(name[:60], 0.0) + t / steps / 1e3
-        if "ei_tile_kernel" in name or "ei_reduce_kernel" in name:
+        if any(k in name for k in EI_KERNEL_NAMES):
             kern += t
     host = sorted(((evt.self_cpu_time_total / steps / 1e3, evt.key) for evt in
                    events if evt.key.startswith("aten::")), reverse=True)[:6]
@@ -1131,6 +1216,14 @@ SSD_CASES = [  # (b, nc, q, h, p, n)
     (1, 1, 256, 1, 64, 128),
     (2, 3, 8, 8, 16, 16),  # the smoke model's chunk: Q = 8, 8 heads of 16, state 16
     (1, 2, 100, 3, 20, 24),  # ragged: Q, P and N off the kernel's tile multiples
+    (1, 1, 512, 2, 96, 192),  # past the CUDA-core kernel's caps (Q 256, P 64, N 128)
+    (1, 2, 333, 3, 72, 136),  # ragged past all three
+    (1, 2, 77, 2, 33, 17),  # odd P and N: the 4-byte copies and single stores
+]
+SSD_GROUPED = [  # (b, nc, q, h, p, n, groups, bf16): B and C per group, as the model
+    (1, 2, 256, 8, 64, 128, 2, False),  # passes them: G > 1 (each head reads h // 4)
+    (2, 2, 256, 8, 64, 128, 1, True),  # x, B and C bf16 values, as the model gives them
+    (1, 1, 300, 6, 40, 72, 3, True),
 ]
 # Kernel against plain version, as tests/test_kernels.py holds the TPU kernel
 # against its oracle: float32 products summed in another order.
@@ -1142,7 +1235,7 @@ SSD_PATHS = {  # the kernel's (batch, sequence length) on each path that runs it
     "ssm_serve": (SERVE_SSM_BATCH, SERVE_SSM_PROMPT),  # the prefill
     "ssm_train": (2, 4096),  # a microbatch of phase 13's training step
 }
-SSD_KERNEL_NAMES = ("ssd_diag_kernel",)
+SSD_KERNEL_NAMES = ("ssd_diag_wgmma_kernel", "ssd_cumsum_kernel")
 
 
 def ssd_path_shape(cfg, b: int, t: int) -> tuple:
@@ -1152,28 +1245,24 @@ def ssd_path_shape(cfg, b: int, t: int) -> tuple:
     return b, -(-t // q), q, s.num_heads(cfg.d_model), s.head_dim, s.d_state
 
 
-def ssd_inputs(dev, seed, b, nc, q, h, p, n, groups=None):
+def ssd_inputs(dev, seed, b, nc, q, h, p, n, groups=None, bf16=False):
     """x, dt, lA, B, C drawn on ``dev`` as tests/test_kernels.py draws them.
-    With ``groups``, B and C hold that many groups and reach the kernel as
-    head-broadcast views (stride 0 over the heads of a group), as
-    `ssd_chunked` passes them; otherwise they are head-expanded."""
+    With ``groups``, B and C hold that many groups, (b, nc, q, G, n), as
+    `ssd_chunked` passes them (head h reads group h // (h / G)); otherwise
+    they are head-expanded.  With ``bf16``, x, B and C are rounded to
+    bfloat16 values, as the model's bfloat16 compute gives them."""
     import torch
     import torch.nn.functional as F
 
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def randn(*shape):
-        return torch.randn(shape, generator=g, device=dev)
+        a = torch.randn(shape, generator=g, device=dev)
+        return a.to(torch.bfloat16).float() if bf16 else a
 
     x, dt, lA = randn(b, nc, q, h, p), F.softplus(randn(b, nc, q, h)), -F.softplus(randn(b, nc, q, h))
-    if groups is None:
-        return x, dt, lA, randn(b, nc, q, h, n), randn(b, nc, q, h, n)
-    rep = h // groups
-
-    def heads(a):  # (b, nc, q, G, n) -> (b, nc, q, h, n), group h // rep
-        return a[:, :, :, :, None].expand(b, nc, q, groups, rep, n).reshape(b, nc, q, h, n)
-
-    return x, dt, lA, heads(randn(b, nc, q, groups, n)), heads(randn(b, nc, q, groups, n))
+    g_ = h if groups is None else groups
+    return x, dt, lA, randn(b, nc, q, g_, n), randn(b, nc, q, g_, n)
 
 
 def ssd_bound(b, nc, q, h, p, n, groups) -> dict:
@@ -1181,25 +1270,27 @@ def ssd_bound(b, nc, q, h, p, n, groups) -> dict:
     written once, B and C once per group, over HBM bandwidth; and the
     operations the lower triangle needs, Q(Q+1)/2 pairs per (chunk, head),
     each 2N for C.B, 2P for the weighted sum of x and 4 for the weight
-    (difference, exp, two products), over the FP32 peak: the inputs are
-    float32.  The bf16 tensor-core figure is printed beside it."""
+    (difference, exp, two products), over the TF32 tensor-core peak, where
+    the kernel takes its products.  The FP32 figure (the CUDA-core kernel's
+    bound) is printed beside it."""
     cells = b * nc * h
     flops = cells * (q * (q + 1) // 2) * (2 * n + 2 * p + 4)
     nbytes = 4 * (2 * cells * q * p + 2 * cells * q + 2 * b * nc * q * groups * n)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_PER_S * 1e3
+    t_ops = flops / PEAK_TF32_PER_S * 1e3
     return {"bytes": nbytes, "flops": flops,
             "flops_full": cells * q * q * (2 * n + 2 * p + 4),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_bytes_ms": t_bytes,
-            "bound_bf16_ms": max(t_bytes, flops / PEAK_BF16_PER_S * 1e3)}
+            "bound_fp32_ms": max(t_bytes, flops / PEAK_FP32_PER_S * 1e3)}
 
 
 def phase_ssd(dev, report) -> dict:
     import torch
 
     from repro_torch import configs as C
+    from repro_torch.kernels.ssd.kernel import ssd_diag_cuda
     from repro_torch.kernels.ssd.ops import ssd_diag_chunk, ssd_diag_plain
     from repro_torch.testing import assert_close
 
@@ -1208,40 +1299,57 @@ def phase_ssd(dev, report) -> dict:
     errs = {}
 
     def check(name, args):
+        before = ssd_diag_cuda.launches
         out = ssd_diag_chunk(*args)
         plain = ssd_diag_plain(*args)
         torch.cuda.synchronize()
+        if ssd_diag_cuda.launches != before + 1:
+            raise AssertionError(f"{name}: {ssd_diag_cuda.launches - before} launches counted")
         if not bool(torch.isfinite(out).all()):
             raise AssertionError(f"non-finite kernel output at {name}")
         errs[name] = assert_close(plain.cpu().numpy(), out.cpu().numpy(), **SSD_TOL, what=name)
-        print(f"  {name:62s} max |kernel - plain| {errs[name]:.3e}")
+        print(f"  {name:66s} max |kernel - plain| {errs[name]:.3e}")
 
     times = {}
     with torch.inference_mode():
         for i, shape in enumerate(SSD_CASES):
             check("b={} nc={} q={} h={} p={} n={}".format(*shape), ssd_inputs(dev, 200 + i, *shape))
+        for i, (*shape, g, bf16) in enumerate(SSD_GROUPED):
+            check("b={} nc={} q={} h={} p={} n={}".format(*shape) + f", G={g}"
+                  + (", bf16 values" if bf16 else ""),
+                  ssd_inputs(dev, 220 + i, *shape, groups=g, bf16=bf16))
         for path, (b, t) in SSD_PATHS.items():
             shape = ssd_path_shape(cfg, b, t)
             g = cfg.ssm.n_groups
-            args = ssd_inputs(dev, 9, *shape, groups=g)
-            name = "{} (BC,Q,H,P,N) = ({},{},{},{},{}), G={}".format(
+            label = "{} (BC,Q,H,P,N) = ({},{},{},{},{}), G={}".format(
                 path, shape[0] * shape[1], *shape[2:], g)
-            check(name, args)
-            ms = cuda_time_ms(lambda: ssd_diag_chunk(*args), reps=20)
-            plain_ms = cuda_time_ms(lambda: ssd_diag_plain(*args), reps=3)
-            k_dev = graph_ms(lambda: ssd_diag_chunk(*args))
-            p_dev = graph_ms(lambda: ssd_diag_plain(*args), calls=1, reps=3)
             bound = ssd_bound(*shape, g)
-            print(f"  time at the {path} shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA "
-                  f"events around one call, median of 20 and 3); device time per call (CUDA "
-                  f"graph replay): kernel {k_dev:.4f} ms, plain {p_dev:.4f} ms; bound "
-                  f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, FP32 peak; bytes alone "
-                  f"{bound['bound_bytes_ms']:.4f} ms; {bound['bound_bf16_ms']:.4f} ms at the bf16 "
-                  f"tensor peak; {bound['bytes']} B, {bound['flops']} flop, "
+            got = {}
+            # x, B and C as the model gives them (bfloat16 values: their
+            # low TF32 terms are 0), then any float32 values.
+            for kind, bf16 in (("bf16 values", True), ("f32 values", False)):
+                args = ssd_inputs(dev, 9, *shape, groups=g, bf16=bf16)
+                name = f"{label}, {kind}"
+                check(name, args)
+                ms = cuda_time_ms(lambda: ssd_diag_chunk(*args), reps=20)
+                plain_ms = cuda_time_ms(lambda: ssd_diag_plain(*args), reps=3)
+                k_dev = graph_ms(lambda: ssd_diag_chunk(*args))
+                p_dev = graph_ms(lambda: ssd_diag_plain(*args), calls=1, reps=3)
+                got[kind] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                                 device_ms=k_dev, plain_device_ms=p_dev)
+                print(f"  time at the {path} shape, {kind}: kernel {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms (CUDA events around one call, median of 20 and 3); "
+                      f"device time per call (CUDA graph replay): kernel {k_dev:.4f} ms, plain "
+                      f"{p_dev:.4f} ms")
+                del args
+            print(f"    bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; TF32 tensor peak; "
+                  f"bytes alone {bound['bound_bytes_ms']:.4f} ms; {bound['bound_fp32_ms']:.4f} ms "
+                  f"at the FP32 peak; {bound['bytes']} B, {bound['flops']} flop, "
                   f"{bound['flops_full']} flop for full Q x Q)")
-            times[path] = dict(shape=name.split(" ", 1)[1], max_abs_err=errs[name], ms=ms,
-                               plain_ms=plain_ms, device_ms=k_dev, plain_device_ms=p_dev, **bound)
-            del args
+            main = got["bf16 values"]
+            times[path] = dict(shape=label.split(" ", 1)[1], **main,
+                               f32_values_device_ms=got["f32 values"]["device_ms"],
+                               f32_values_ms=got["f32 values"]["ms"], **bound)
     report["ssd"] = {"case_errs": errs, "paths": times}
     return times
 
@@ -1967,19 +2075,24 @@ def main(argv=None) -> int:
                 print(f"    {name}: {kernel_name(line.split(chr(39))[1])}:")
             elif "registers" in line or "spill" in line or "built in" in line:
                 print(f"    {name}:   {line.strip()}")
-    fa_lib = fa_kernel.load()
-    sass = sass_counts(fa_lib._name)
-    for fn, counts in sass.items():
-        print(f"    flash_attention SASS {fn}: {counts}")
-    tc = [c for fn, c in sass.items() if fn.startswith("flash_fwd_wgmma_kernel")]
+    sass = {}
+    for name, mod in (("ei_argmax", ei_kernel), ("flash_attention", fa_kernel),
+                      ("ssd", ssd_kernel)):
+        sass[name] = sass_counts(mod.load()._name)
+        for fn, counts in sass[name].items():
+            print(f"    {name} SASS {fn}: {counts}")
+    tc = [c for fn, c in sass["flash_attention"].items() if fn.startswith("flash_fwd_wgmma_kernel")]
     if not tc or not all(c["HGMMA"] and c["UTMALDG"] for c in tc):
         raise AssertionError(f"the tensor-core flash kernel lacks HGMMA or UTMALDG: {sass}")
+    if not sass["ssd"].get("ssd_diag_wgmma_kernel", {}).get("HGMMA"):
+        raise AssertionError(f"the SSD kernel lacks HGMMA: {sass['ssd']}")
     report["sass"] = sass
+    fa_lib = fa_kernel.load()
     print(f"    flash_attention: {fa_lib.flash_attention_smem_bytes(FWD_SHAPE[4])} (CUDA cores) "
           f"and {fa_lib.flash_attention_wgmma_smem_bytes(FWD_SHAPE[4])} (tensor cores) bytes "
           f"of dynamic shared memory per block at D={FWD_SHAPE[4]}")
-    print(f"    ssd: {ssd_kernel.load().ssd_diag_smem_bytes(ssd_kernel.MAX_N)} bytes of dynamic "
-          f"shared memory per block at N={ssd_kernel.MAX_N}")
+    print(f"    ssd: {ssd_kernel.load().ssd_diag_smem_bytes()} bytes of dynamic shared memory "
+          f"per block (any shape)")
 
     failed = []
     times, fa_times, ssd_times, rn, launches = None, None, None, None, {}
@@ -2074,7 +2187,7 @@ def main(argv=None) -> int:
     kernels.extend({
         "name": "ssd_diag",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd_wgmma.cu",
         "replaces": "src/repro/kernels/ssd/ssd.py:59",
         "path": path,
         "shape": t["shape"],

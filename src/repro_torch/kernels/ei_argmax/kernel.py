@@ -4,46 +4,58 @@
 (`repro_torch.kernels.build`), launches the kernel on PyTorch's current
 stream and returns ((J,) int32 argmax, (J,) float32 max EI).  It allocates
 the outputs and the per-block partials with `torch.empty`; the kernel
-allocates nothing.  A failed build or launch raises.
+allocates nothing.  The kernel folds the partials itself (the last block of
+a job to finish), counting finished blocks in a per-device int32 buffer
+that each call leaves at 0 for the next; calls share it, so they run on one
+stream at a time.  A failed build or launch raises.
 
-``ei_argmax_cuda.launches`` counts the calls that launched the kernel
-(one call is one tile pass and one reduce pass), so a run can show that
-its main path went through it.
+The library picks the route by (B, d): B <= 64 and d <= 8 take the
+register route (a candidate's features and its triangular solve in
+registers, in buckets of B), every other shape the blocked route (a block's
+right-hand sides in shared memory, a blocked forward substitution over L);
+the register route took 0.42-0.81x the blocked route's device time at
+the catalog's and the n512 fixture's shapes on an H100 (`PERF.md`).  Neither
+caps n, B or d beyond the grid (J <= 65535) and, on the blocked route, one
+candidate's right-hand side beside the staged training rows in a block's
+shared memory: B + d + 1 <= 55296 - r(d + 3) with r = min(64, 4096 // d),
+so B <= 54713 at d = 6 (`blocked_tile` in the source).  `_launch` forces
+one route, for the tests that hold each against the plain version.
+
+``ei_argmax_cuda.launches`` counts the calls that launched the kernel (one
+launch a call), so a run can show that its main path went through it.
 """
 
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import Dict
 
 import torch
 
 from repro_torch.kernels.build import load_library
 
-__all__ = ["MAX_B", "MAX_D", "ei_argmax_cuda", "load"]
+__all__ = ["ei_argmax_cuda", "load"]
 
 _SOURCES = (Path(__file__).resolve().parent / "csrc" / "ei_argmax.cu",)
 _NAME = "ei_argmax"
-MAX_B = 128  # EI_MAX_B in the source: L takes 64 KB of shared memory
-MAX_D = 32  # EI_MAX_D in the source
+_AUTO, _REGISTERS, _BLOCKED = 0, 1, 2  # the library's route codes (`ei_argmax_tile`)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_DONE: Dict[torch.device, torch.Tensor] = {}  # finished-block counts, per device
 
 
 def load() -> ctypes.CDLL:
     """The kernel library, built from the checkout's sources at first use."""
     lib = load_library(_NAME, _SOURCES)
     if not getattr(lib, "_repro_bound", False):
-        lib.ei_argmax_launch.argtypes = [_P] * 11 + [_I] * 4 + [ctypes.c_float, _P]
+        lib.ei_argmax_launch.argtypes = [_P] * 12 + [_I] * 4 + [ctypes.c_float, _I, _P]
         lib.ei_argmax_launch.restype = _I
         lib.ei_argmax_error_string.argtypes = [_I]
         lib.ei_argmax_error_string.restype = ctypes.c_char_p
-        for fn in (lib.ei_argmax_block, lib.ei_argmax_max_b, lib.ei_argmax_max_d):
-            fn.argtypes = []
-            fn.restype = _I
-        if (lib.ei_argmax_max_b(), lib.ei_argmax_max_d()) != (MAX_B, MAX_D):
-            raise RuntimeError("ei_argmax library caps disagree with kernel.py")
+        lib.ei_argmax_tile.argtypes = [_I] * 4
+        lib.ei_argmax_tile.restype = _I
         lib._repro_bound = True
     return lib
 
@@ -59,6 +71,15 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _done(dev: torch.device, J: int) -> torch.Tensor:
+    """At least J zeroed counts on ``dev``, kept between calls (each call
+    leaves them at 0)."""
+    buf = _DONE.get(dev)
+    if buf is None or buf.numel() < J:
+        buf = _DONE[dev] = torch.zeros(max(J, 64), dtype=torch.int32, device=dev)
+    return buf
+
+
 def ei_argmax_cuda(
     enc: torch.Tensor,  # (J, n, d) f32
     mask: torch.Tensor,  # (J, n) bool
@@ -70,15 +91,22 @@ def ei_argmax_cuda(
     xi: float = 0.0,
 ):
     """((J,) int32 argmax, (J,) f32 max EI) of the masked EI, on the card."""
+    return _launch(enc, mask, feats, pm, alpha, chol, scal, xi, _AUTO)
+
+
+def _launch(enc, mask, feats, pm, alpha, chol, scal, xi: float, route: int):
+    """`ei_argmax_cuda` on ``route``: `_AUTO`, or `_REGISTERS` / `_BLOCKED`
+    forced (raising where that route cannot take the shape)."""
     if enc.device.type != "cuda":
         raise ValueError(f"ei_argmax_cuda needs CUDA tensors, got {enc.device}")
+    if enc.dim() != 3 or feats.dim() != 3:
+        raise ValueError(f"enc and feats must be 3-D, got {tuple(enc.shape)} and "
+                         f"{tuple(feats.shape)}")
     J, n, d = enc.shape
     B = feats.shape[1]
-    if n < 1 or not 1 <= d <= MAX_D or not 1 <= B <= MAX_B or not 1 <= J <= 65535:
-        raise ValueError(
-            f"ei_argmax kernel takes n >= 1, d <= {MAX_D}, B <= {MAX_B}, "
-            f"J <= 65535; got n={n} d={d} B={B} J={J}"
-        )
+    if min(n, d, B) < 1 or not 1 <= J <= 65535:
+        raise ValueError(f"ei_argmax kernel takes n, d, B >= 1 and 1 <= J <= 65535; "
+                         f"got n={n} d={d} B={B} J={J}")
     dev = enc.device
     f32 = torch.float32
     _check("enc", enc, f32, (J, n, d), dev)
@@ -90,18 +118,23 @@ def ei_argmax_cuda(
     _check("scal", scal, f32, (J, 4), dev)
 
     lib = load()
-    nb = -(-n // lib.ei_argmax_block())
+    tile = lib.ei_argmax_tile(n, d, B, route)
+    if tile < 1:
+        what = {_AUTO: "", _REGISTERS: "register route of the ", _BLOCKED: "blocked route of the "}
+        raise ValueError(f"the {what[route]}ei_argmax kernel cannot take d={d} B={B}")
+    nb = -(-n // tile)
     part_val = torch.empty((J, nb), dtype=f32, device=dev)
     part_idx = torch.empty((J, nb), dtype=torch.int32, device=dev)
     out_val = torch.empty(J, dtype=f32, device=dev)
     out_idx = torch.empty(J, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
+        done = _done(dev, J)
         err = lib.ei_argmax_launch(
             enc.data_ptr(), mask.data_ptr(), feats.data_ptr(), pm.data_ptr(),
             alpha.data_ptr(), chol.data_ptr(), scal.data_ptr(),
-            part_val.data_ptr(), part_idx.data_ptr(),
+            part_val.data_ptr(), part_idx.data_ptr(), done.data_ptr(),
             out_val.data_ptr(), out_idx.data_ptr(),
-            J, n, d, B, float(xi), torch.cuda.current_stream(dev).cuda_stream,
+            J, n, d, B, float(xi), route, torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         msg = lib.ei_argmax_error_string(err).decode()

@@ -9,7 +9,8 @@ block; the plain version of the fused kernel
 (`repro_torch.kernels.ei_argmax.ops.ei_argmax_plain`) calls it on
 (J,B,tile) blocks.  Every op is elementwise in the candidate axis or
 contracts over B only, so a tile of columns computes what the full block
-computes for those columns.
+computes for those columns.  The posterior's two sums over B (the mean and
+|v|^2) run in float64, where the reference's run in float32.
 
 Shapes carry a leading job axis J (any leading batch shape works): d2
 (J,B,m), pm/alpha (J,B), chol (J,B,B), the four scalars (J,), mask (J,m).
@@ -43,9 +44,14 @@ def ei_from_sqdist(
 ) -> torch.Tensor:
     """Masked EI over the m candidate columns of ``d2``; (J, m) float32."""
     k_star = matern52_from_sqdist(d2, ls[..., None, None]) * pm[..., :, None]
-    mean_n = (k_star.transpose(-1, -2) @ alpha[..., None])[..., 0]
-    v = torch.linalg.solve_triangular(chol, k_star, upper=False)
-    var_n = torch.clamp_min(1.0 - torch.sum(v * v, -2), 1e-12)
+    # The two sums over B in float64, rounded once (the reference sums in
+    # float32): 1 - |v|^2 cancels when observations crowd the space, and
+    # float32 sums in different orders (this one's, the card kernel's) then
+    # part by more than EI_RTOL.  The products are exact in float64.
+    f64 = torch.float64
+    mean_n = (k_star.transpose(-1, -2).to(f64) @ alpha[..., None].to(f64))[..., 0].to(d2.dtype)
+    v = torch.linalg.solve_triangular(chol, k_star, upper=False).to(f64)
+    var_n = torch.clamp_min((1.0 - torch.sum(v * v, -2)).to(d2.dtype), 1e-12)
     std_n = torch.sqrt(var_n)
 
     # De-standardize.

@@ -4,8 +4,10 @@ Port of `repro/kernels/ssd/ops.py`, with its (B, NC, Q, H, ·) layout.
 
   * A CUDA tensor launches the hand-written kernel (`kernel.ssd_diag_cuda`)
     or raises.  The batch and chunk axes are flattened into one, as the
-    reference flattens them for its kernel; B and C keep their strides, so
-    a head-broadcast view (head stride 0) reaches the kernel uncopied.
+    reference flattens them for its kernel; B and C keep their strides and
+    may come per group, (B, NC, Q, G, N) with G dividing H, so neither the
+    grouped tensor nor a head-broadcast view (head stride 0) is copied out
+    per head.
   * A CPU tensor takes `ssd_diag_plain`: the kernel's arithmetic in torch,
     tile by tile: the prefix sum of lA over the chunk, summed in float64
     and rounded once to float32 as the kernel sums it, and for each query
@@ -15,7 +17,9 @@ Port of `repro/kernels/ssd/ops.py`, with its (B, NC, Q, H, ·) layout.
   * The backward is autograd through `ref.ssd_diag_ref`, as the
     reference's custom VJP is the oracle's.
 
-The kernel is built for 64-row tiles (`kernel.BLOCK`); the plain version
+The kernel is built for 64-row tiles (`kernel.BLOCK`) and computes the
+products on the tensor cores, each f32 operand as two TF32 terms; the plain
+version computes them in f32.  The plain version
 takes the tile sizes as ``block_q`` and ``block_k``, and its result does
 not depend on them beyond float32 rounding.
 """
@@ -25,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.ssd.kernel import BLOCK, ssd_diag_cuda
-from repro_torch.kernels.ssd.ref import ssd_diag_ref
+from repro_torch.kernels.ssd.ref import heads, ssd_diag_ref
 
 __all__ = ["ssd_diag_chunk", "ssd_diag_plain"]
 
@@ -34,8 +38,8 @@ def ssd_diag_plain(
     x: torch.Tensor,  # (B, NC, Q, H, P)
     dt: torch.Tensor,  # (B, NC, Q, H)
     lA: torch.Tensor,  # (B, NC, Q, H)
-    B_: torch.Tensor,  # (B, NC, Q, H, N)
-    C_: torch.Tensor,  # (B, NC, Q, H, N)
+    B_: torch.Tensor,  # (B, NC, Q, H or G, N)
+    C_: torch.Tensor,  # (B, NC, Q, H or G, N)
     *,
     block_q: int = BLOCK,
     block_k: int = BLOCK,
@@ -44,8 +48,8 @@ def ssd_diag_plain(
     b, nc, q, h, p = x.shape
     f32 = torch.float32
     xf = x.to(f32).movedim(3, 2)  # (b, nc, h, q, p)
-    Bf = B_.to(f32).movedim(3, 2)
-    Cf = C_.to(f32).movedim(3, 2)
+    Bf = heads(B_.to(f32), h).movedim(3, 2)
+    Cf = heads(C_.to(f32), h).movedim(3, 2)
     dtf = dt.to(f32).movedim(3, 2)  # (b, nc, h, q)
     cs = torch.cumsum(lA.to(torch.float64), dim=2).to(f32).movedim(3, 2)  # (b, nc, h, q)
     pos = torch.arange(q, device=x.device)
@@ -102,8 +106,8 @@ def ssd_diag_chunk(
     x: torch.Tensor,  # (B, NC, Q, H, P)
     dt: torch.Tensor,  # (B, NC, Q, H)
     lA: torch.Tensor,  # (B, NC, Q, H)
-    B_: torch.Tensor,  # (B, NC, Q, H, N) — head-expanded (a stride-0 view will do)
-    C_: torch.Tensor,  # (B, NC, Q, H, N)
+    B_: torch.Tensor,  # (B, NC, Q, G, N), G | H: per group, or per head (a stride-0 view will do)
+    C_: torch.Tensor,  # (B, NC, Q, G, N)
 ) -> torch.Tensor:
     """The intra-chunk term (B,NC,Q,H,P) in float32; differentiable in every input."""
     return _SSDDiag.apply(x, dt, lA, B_, C_)

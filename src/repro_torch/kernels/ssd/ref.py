@@ -5,7 +5,9 @@ Matches the non-kernel branch of `repro_torch.models.ssm.ssd_chunked`:
 
     y[i] = Σ_{j ≤ i} (C_i · B_j) · exp(Σ_{l=j+1..i} lA_l) · dt_j · x_j
 
-The whole (Q, Q) decay and score blocks at once, in float32, the prefix
+B and C may come per group, (..., G, N) with G dividing H: head h reads
+group h // (H // G).  The whole (Q, Q) decay and score blocks at once, in
+float32, the prefix
 sum of the log-decays summed in float64 and rounded once (`torch.cumsum`
 on the CPU accumulates so; on the card it would not).  It is the
 oracle the kernel's plain version and the kernel are held against, and
@@ -16,7 +18,20 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["ssd_diag_ref"]
+__all__ = ["heads", "ssd_diag_ref"]
+
+
+def heads(a: torch.Tensor, h: int) -> torch.Tensor:
+    """(..., G, N) → (..., h, N), head i reading group i // (h // G): the
+    tensor itself when G = h, a stride-0 view for one group, else a copy."""
+    g = a.shape[-2]
+    if g == h:
+        return a
+    if h % g:
+        raise ValueError(f"{g} groups do not divide {h} heads")
+    if g == 1:
+        return a.expand(*a.shape[:-2], h, a.shape[-1])
+    return a.repeat_interleave(h // g, dim=-2)
 
 
 def _segsum(lA: torch.Tensor) -> torch.Tensor:
@@ -31,10 +46,11 @@ def ssd_diag_ref(
     x: torch.Tensor,  # (B, NC, Q, H, P)
     dt: torch.Tensor,  # (B, NC, Q, H)
     lA: torch.Tensor,  # (B, NC, Q, H) log-decays (dt·A)
-    B_: torch.Tensor,  # (B, NC, Q, H, N)
-    C_: torch.Tensor,  # (B, NC, Q, H, N)
+    B_: torch.Tensor,  # (B, NC, Q, H or G, N)
+    C_: torch.Tensor,  # (B, NC, Q, H or G, N)
 ) -> torch.Tensor:
     f32 = torch.float32
+    B_, C_ = heads(B_, x.shape[3]), heads(C_, x.shape[3])
     seg = _segsum(lA.to(f32).movedim(-1, -2))  # (B,NC,H,Q,Q)
     decay = torch.exp(seg)
     scores = torch.einsum("bcqhn,bckhn->bchqk", C_.to(f32), B_.to(f32))

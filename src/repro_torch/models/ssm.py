@@ -25,8 +25,8 @@ reference puts it, so bfloat16 rounds at the same places.  Prefix sums of
 the log-decays are summed in float64 and rounded once to float32
 (`_cumsum`), on the CPU and the card alike, as the SSD kernel sums them.  Heads read their
 B/C group (``h // (H // G)``) through broadcast views rather than the
-reference's ``jnp.repeat`` copies, in the products and in the kernel's
-input alike; the reference's `shard_activation` constraints have no
+reference's ``jnp.repeat`` copies, and the kernel takes B and C per group
+and reads each head's group itself; the reference's `shard_activation` constraints have no
 counterpart on one device.
 """
 
@@ -186,7 +186,7 @@ def ssd_chunked(
 
     # ----- intra-chunk (diagonal) term -------------------------------------
     if use_kernel:
-        y_diag = ssd_diag_chunk(xc, dtc, lA, _over_heads(Bc, rep), _over_heads(Cc, rep))
+        y_diag = ssd_diag_chunk(xc, dtc, lA, Bc, Cc)  # per group: never copied per head
     else:
         seg = _segsum(lA.movedim(-1, -2))  # (B, nc, H, Q, Q)
         decay = torch.exp(seg)

@@ -60,10 +60,16 @@ def case(dev, seed, n, d, k, cap):
             ls, y_mean, y_std, best)
 
 
-@pytest.mark.parametrize("seed,n,d,k,cap", [
+EI_CASES = [  # (seed, n, d, k, cap): the main paths' and edge shapes, each register
     (0, 69, 4, 40, 69), (1, 1500, 6, 24, 24), (2, 200, 1, 5, 12), (3, 2000, 4, 100, 128),
-    (4, 130, 6, 2, 2),
-])
+    (4, 130, 6, 2, 2), (11, 500, 4, 12, 16), (12, 800, 5, 30, 32), (13, 1200, 6, 50, 64),
+    # bucket at its edge, then past the register route: B = 129, 256, 1000; d = 33, 64
+    (6, 3000, 5, 100, 129), (7, 4000, 6, 160, 256), (8, 5000, 6, 250, 1000),
+    (9, 2000, 33, 20, 24), (10, 3000, 64, 30, 40),
+]
+
+
+@pytest.mark.parametrize("seed,n,d,k,cap", EI_CASES)
 def test_kernel_matches_plain_version(dev, seed, n, d, k, cap):
     args = case(dev, seed, n, d, k, cap)
     before = kernel.ei_argmax_cuda.launches
@@ -76,6 +82,24 @@ def test_kernel_matches_plain_version(dev, seed, n, d, k, cap):
     assert_close(float(p_val[0]), float(k_val[0]), rtol=EI_RTOL, atol=EI_ATOL)
 
 
+@pytest.mark.parametrize("seed,n,d,k,cap", [EI_CASES[1], EI_CASES[5], EI_CASES[7]])
+def test_kernel_routes_match_plain_version(dev, seed, n, d, k, cap):
+    """The register and blocked routes, each forced, at shapes both take:
+    one launch a call, each held to the plain version."""
+    args = case(dev, seed, n, d, k, cap)
+    scal = torch.stack([args[6], args[7], args[8], args[9]], -1)
+    p_idx, p_val = ei_argmax_plain(*args)
+    full = ei_from_sqdist(pairwise_sqdist(args[2], args[0]), *args[3:], args[1])[0].cpu().numpy()
+    for route in (kernel._REGISTERS, kernel._BLOCKED):
+        before = kernel.ei_argmax_cuda.launches
+        k_idx, k_val = kernel._launch(*args[:6], scal, 0.0, route)
+        torch.cuda.synchronize()
+        assert kernel.ei_argmax_cuda.launches == before + 1
+        assert pick_agrees(int(p_idx[0]), int(k_idx[0]), full), route
+        assert_close(float(p_val[0]), float(k_val[0]), rtol=EI_RTOL, atol=EI_ATOL,
+                     what=f"route {route}")
+
+
 def test_kernel_rejects_what_it_cannot_take(dev):
     args = list(case(dev, 5, 300, 3, 5, 8))
     scal = torch.stack([args[6], args[7], args[8], args[9]], -1)
@@ -84,6 +108,49 @@ def test_kernel_rejects_what_it_cannot_take(dev):
     with pytest.raises(ValueError):
         kernel.ei_argmax_cuda(args[0].transpose(1, 2).contiguous().transpose(1, 2),
                               *args[1:6], scal)
+    with pytest.raises(ValueError):  # CPU tensors never reach the kernel
+        kernel.ei_argmax_cuda(*(a.cpu() for a in args[:6]), scal.cpu())
+    big = list(case(dev, 6, 400, 3, 100, 129))
+    big_scal = torch.stack([big[6], big[7], big[8], big[9]], -1)
+    with pytest.raises(ValueError, match="register route"):
+        kernel._launch(*big[:6], big_scal, 0.0, kernel._REGISTERS)
+
+
+def test_fused_search_past_128_configurations_on_the_card(dev):
+    """CherryPick over 200 configurations with no trial budget (B = 200) in
+    the fused layout on the card, seeds 0 and 1: every BO step launches the
+    kernel once, and each trace is held step by step to the CPU's (the plain
+    version) under the tie-aware comparator, each pick equal or a certified
+    tie under the CPU's EI at that step; at least one matches in full."""
+    from repro_torch.core import bayesopt
+    from repro_torch.core.search_space import Configuration, SearchSpace
+    from repro_torch.testing import compare_traces, port_ei_at
+
+    rng = np.random.default_rng(200)
+    feats = rng.normal(size=(200, 5))
+    space = SearchSpace([Configuration(name=f"s{i}", features=tuple(map(float, f)),
+                                       total_memory=float(i) * 2.0**30)
+                         for i, f in enumerate(feats)])
+    z = feats @ rng.normal(size=5)
+    table = 1.0 + ((z - z.mean()) / z.std() - 0.7) ** 2 + 0.05 * rng.random(200)
+    n = len(space)
+    assert bayesopt.trial_budget(n, 0, bayesopt.BOSettings()) == n == 200
+    full = 0
+    for seed in (0, 1):
+        runs = {}
+        for where in ("cuda", "cpu"):
+            before = kernel.ei_argmax_cuda.launches
+            runs[where] = bayesopt.cherrypick_search(space, lambda i: float(table[i]),
+                                                     np.random.default_rng(seed),
+                                                     layout="fused", device=where)
+            runs[where + "_launches"] = kernel.ei_argmax_cuda.launches - before
+        got, cpu = runs["cuda"], runs["cpu"]
+        assert runs["cpu_launches"] == 0 and len(got.tried) > 3
+        assert runs["cuda_launches"] >= len(got.tried) - 3
+        cmp = compare_traces(cpu, got, port_ei_at(space.encoded(), [list(range(n))], n, cpu,
+                                                  "cpu"), first_bo_step=3)
+        full += cmp.full
+    assert full >= 1, "no card trace matched the CPU's in full"
 
 
 # ---------------------------------------------------------------- flash attention (K2)
@@ -256,6 +323,9 @@ SSD_SHAPES = [  # (b, nc, q, h, p, n): tests/test_kernels.py's four, ragged, smo
     (1, 1, 256, 1, 64, 128),
     (1, 2, 100, 3, 20, 24),
     (2, 3, 8, 8, 16, 16),
+    (1, 1, 512, 2, 96, 192),  # past the CUDA-core kernel's caps (Q 256, P 64, N 128)
+    (1, 2, 333, 3, 72, 136),  # ragged past all three
+    (1, 2, 77, 2, 33, 17),  # odd P and N: the 4-byte copies and single stores
 ]
 SSD_TOL = dict(rtol=1e-4, atol=1e-4)  # tests/test_kernels.py's limits for the TPU kernel
 
@@ -294,15 +364,39 @@ def test_ssd_kernel_reads_head_broadcast_views(dev):
                  view.cpu().numpy(), **SSD_TOL)
 
 
+@pytest.mark.parametrize("b,nc,q,h,p,n,g,bf16", [
+    (1, 2, 256, 8, 64, 128, 2, False),  # G > 1: head h reads group h // 4
+    (2, 2, 256, 8, 64, 128, 1, True),  # x, B and C bf16 values, as the model gives them
+    (1, 1, 300, 6, 40, 72, 3, True),
+])
+def test_ssd_kernel_reads_grouped_b_and_c(dev, b, nc, q, h, p, n, g, bf16):
+    """B and C per group, (b, nc, q, G, n), as `ssd_chunked` passes them:
+    one launch, held to the plain version (and to the head copies' result)."""
+    x, dt, lA, B_, C_ = ssd_inputs(dev, 11 * g + q, b, nc, q, h, p, n)
+    Bg, Cg = B_[:, :, :, :g], C_[:, :, :, :g]
+    if bf16:
+        x, Bg, Cg = (a.to(torch.bfloat16).float() for a in (x, Bg, Cg))
+    before = ssd_kernel.ssd_diag_cuda.launches
+    out = ssd_diag_chunk(x, dt, lA, Bg, Cg)
+    torch.cuda.synchronize()
+    assert ssd_kernel.ssd_diag_cuda.launches == before + 1
+    plain = ssd_diag_plain(x, dt, lA, Bg, Cg)
+    assert_close(plain.cpu().numpy(), out.cpu().numpy(), **SSD_TOL, what="kernel vs plain")
+    copies = ssd_diag_chunk(x, dt, lA, *(a.repeat_interleave(h // g, dim=3) for a in (Bg, Cg)))
+    assert_close(copies.cpu().numpy(), out.cpu().numpy(), **SSD_TOL, what="grouped vs copies")
+
+
 def test_ssd_kernel_rejects_what_it_cannot_take(dev):
     x, dt, lA, B_, C_ = (a[0] for a in ssd_inputs(dev, 0, 1, 1, 64, 2, 16, 16))
     with pytest.raises(TypeError):
         ssd_kernel.ssd_diag_cuda(x.double(), dt, lA, B_, C_)
     with pytest.raises(ValueError):
         ssd_kernel.ssd_diag_cuda(x, dt, lA, B_.transpose(2, 3).contiguous().transpose(2, 3), C_)
-    x2, dt2, lA2, B2, C2 = (a[0] for a in ssd_inputs(dev, 0, 1, 1, 64, 2, 80, 16))
-    with pytest.raises(ValueError):
-        ssd_kernel.ssd_diag_cuda(x2, dt2, lA2, B2, C2)
+    with pytest.raises(ValueError):  # CPU tensors never reach the kernel
+        ssd_kernel.ssd_diag_cuda(x.cpu(), dt.cpu(), lA.cpu(), B_.cpu(), C_.cpu())
+    x3, dt3, lA3, B3, C3 = (a[0] for a in ssd_inputs(dev, 0, 1, 1, 64, 3, 16, 16))
+    with pytest.raises(ValueError):  # 2 groups do not divide 3 heads
+        ssd_kernel.ssd_diag_cuda(x3, dt3, lA3, B3[:, :, :2], C3[:, :, :2])
 
 
 def test_ssm_model_launches_ssd_once_per_layer(dev):

@@ -108,11 +108,14 @@ def test_tile_widths(tile):
 @pytest.mark.parametrize("seed,n,d,k,cap", [
     (0, 69, 4, 40, 69), (1, 69, 5, 3, 24), (2, 600, 7, 24, 24), (3, 1025, 2, 5, 12),
     (4, 50, 2, 2, 2), (5, 200, 1, 5, 12),
+    (6, 400, 4, 100, 129), (7, 300, 5, 150, 200), (8, 300, 33, 10, 16), (9, 300, 40, 20, 24),
 ])
 def test_shapes_and_fills(seed, n, d, k, cap):
-    """Paper-grid exhaustion, ragged n, the B = 2 / d = 2 edges, and d = 1
+    """Paper-grid exhaustion, ragged n, the B = 2 / d = 2 edges, d = 1
     (which the reference's engine never sends to its kernel; the port's
-    kernel serves it)."""
+    kernel serves it), and B = 129 and 200, d = 33 and 40: past the B <= 128
+    and d <= 32 the card's kernel once took (its register route's limits;
+    its blocked route takes the rest)."""
     check_against_reference(make_case(seed, n, d, k, cap))
 
 

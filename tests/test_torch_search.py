@@ -208,3 +208,29 @@ def test_n512_budgeted_fixture(layout):
                                   layout=layout, device="cpu")
         full += hold(_Trace(outcome), got, [prio, rest], cap, space, 3, f"n512 j{s}").full
     assert full >= 5, f"only {full} of {len(outcomes)} fixture traces matched in full"
+
+
+def test_fused_search_past_128_configurations_without_a_budget():
+    """CherryPick with the paper's stop criterion and no trial budget over a
+    200-configuration space: the packed capacity B is 200, past the 128 the
+    card's EI/argmax kernel once took.  The port's fused layout against the
+    reference's fused lane, seeds 0 and 1: each trace matches or ends at a
+    certified tie, and at least one matches in full."""
+    from repro.core.search_space import Configuration as RefConfiguration
+    from repro.core.search_space import SearchSpace as RefSearchSpace
+
+    space, table = synth_space_table(200)
+    ref_space = RefSearchSpace([RefConfiguration(name=c.name, features=c.features,
+                                                 total_memory=c.total_memory)
+                                for c in space.configs])
+    n = len(space)
+    assert port_bo.trial_budget(n, 0, port_bo.BOSettings()) == n == 200
+    full = 0
+    for s in (0, 1):
+        r = ref_bo.cherrypick_search(ref_space, lambda i: float(table[i]),
+                                     np.random.default_rng(s), layout="fused")
+        g = port_bo.cherrypick_search(space, lambda i: float(table[i]), np.random.default_rng(s),
+                                      layout="fused", device="cpu")
+        assert len(g.tried) > 3  # BO steps ran past the scripted init
+        full += hold(r, g, [list(range(n))], n, ref_space, 3, f"n200 cherrypick {s}").full
+    assert full >= 1, "no trace matched in full"

@@ -44,6 +44,7 @@ SHAPES = [  # (b, nc, q, h, p, n), as in tests/test_kernels.py
     (1, 1, 128, 2, 64, 64),
     (1, 1, 256, 1, 64, 128),  # production chunk shape
     (1, 2, 100, 3, 20, 24),  # ragged: Q, P and N off the tile multiples
+    (1, 1, 512, 2, 96, 192),  # past the Q 256, P 64, N 128 the card's kernel once took
 ]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -124,6 +125,48 @@ def test_gradients_match_reference():
     (port_ops.ssd_diag_chunk(*leaves) ** 2).sum().backward()
     for name, r, t in zip(("x", "dt", "lA", "B", "C"), ref, leaves):
         assert_close(np.asarray(r), t.grad.numpy(), rtol=0.0, atol=1e-4, what=f"grad {name}")
+
+
+def test_gradients_match_reference_at_q512():
+    """d/d(x, dt, lA, B, C) of sum(y²) at Q = 512, P = 96, N = 192, where the
+    gradients reach 5.7e5, held as the op is held: against the exact
+    gradient (the port's oracle in float64) within 1e-6 of its largest
+    component (float32 sums in another order), and against `jax.grad`
+    through the reference's op within that plus the reference's own
+    distance from the exact one (its float32 cumsum: 2.9e-5 of the largest
+    component here)."""
+    a = inputs(9, 1, 1, 512, 1, 96, 192)
+    ref = jax.grad(lambda *v: jnp.sum(ref_ops.ssd_diag_chunk(*v, True) ** 2),
+                   argnums=(0, 1, 2, 3, 4))(*map(jnp.asarray, a))
+    leaves = [t.requires_grad_() for t in as_torch(a)]
+    (port_ops.ssd_diag_chunk(*leaves) ** 2).sum().backward()
+    exact = [t.double().requires_grad_() for t in as_torch(a)]
+    (ssd_diag_ref(*exact) ** 2).sum().backward()
+    for name, r, t, e in zip(("x", "dt", "lA", "B", "C"), ref, leaves, exact):
+        got, want, r = t.grad.numpy(), e.grad.numpy(), np.asarray(r)
+        tol = 1e-6 * np.abs(want).max()
+        assert_close(want, got, rtol=0.0, atol=tol, what=f"grad {name} vs exact")
+        assert (np.abs(got - r) <= tol + np.abs(r - want)).all(), f"grad {name} vs reference"
+
+
+def test_grouped_b_and_c_equal_their_head_copies():
+    """B and C per group, (..., G, N) with G dividing H (as `ssd_chunked`
+    passes them): head h reads group h // (H // G), in the op and in its
+    gradients, as the head-expanded copies give."""
+    x, dt, lA, B_, C_ = as_torch(inputs(8, 1, 2, 16, 6, 4, 8))
+    Bg, Cg = B_[:, :, :, :2], C_[:, :, :, :2]  # G = 2 groups of 3 heads
+    grouped = [t.clone().requires_grad_() for t in (Bg, Cg)]
+    copies = [t.repeat_interleave(3, dim=3).requires_grad_() for t in (Bg, Cg)]
+    y_g = port_ops.ssd_diag_chunk(x, dt, lA, *grouped)
+    y_c = port_ops.ssd_diag_chunk(x, dt, lA, *copies)
+    assert torch.equal(y_g, y_c)
+    (y_g ** 2).sum().backward()
+    (y_c ** 2).sum().backward()
+    for g, c in zip(grouped, copies):
+        summed = c.grad.reshape(*c.shape[:3], 2, 3, c.shape[-1]).sum(4)
+        assert_close(summed.numpy(), g.grad.numpy(), rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="divide"):
+        port_ops.ssd_diag_chunk(x, dt, lA, B_[:, :, :, :4], C_[:, :, :, :4])
 
 
 def test_dispatch_refuses_other_devices():
