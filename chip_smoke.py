@@ -67,7 +67,7 @@ Phases, each reported on its own lines:
      against the oracle's; the op (its path) is driven once at each of the
      last three shapes, and timed there beside its plain version and
      `torch.nn.functional.rms_norm` (the library yardstick, which the port
-     never calls);
+     never calls), also with the L2 cache flushed before each call;
  12. Qwen3-8B training at full width with 8 of its 36 layers (float32
      parameters drawn on the card from a seed, bfloat16 compute, AdamW,
      remat "full", global batch 2 x 4096 tokens in 2 microbatches) through
@@ -78,17 +78,36 @@ Phases, each reported on its own lines:
      under the profiler;
  13. mamba2-370m training at full width and depth (global batch 4 x 4096
      tokens in 2 microbatches), the same checks with the einsum route of
-     the SSD term as the other side.
+     the SSD term as the other side;
+ 14. the fleet on the card (`repro_torch.fleet`), run right after phase 4
+     because it holds its traces against phases 2 and 4: (a) the device split
+     (`split_masks_device`) equal to the host split's lists for the 16
+     paper jobs and for five memory models over the 131072-configuration
+     catalog, both timed; (b) Table II through `tune_fleet`, 16 jobs x
+     seeds 0-7, both modes, to exhaustion, in the fused layout (and seeds
+     0-1 in the feature and gather layouts), each trace held against phase
+     2's sequential one and the quotients against phase 2's; (c) 64
+     CherryPick jobs over the catalog (eight chunks of eight) through a
+     `TuningSession`, one job of each chunk held against a sequential
+     search, ms per chunk step and per job-step, a profiled window, peak
+     memory; (d) `n512-budgeted` through a session, feature then fused
+     layout, held to the fixture; (e) `benchmarks/fleet_bench.py`'s
+     warm-start stream (64 paper jobs in 8 waves, a `ProfileCache`), run
+     twice and required identical; (f) `run_ruya` and `run_cherrypick` with
+     ``cost_table=``; and the EI/argmax kernel at J = 8 rows, at the shapes
+     of (b) and (c), against its plain version and timed.
 
-Phases 2-4 are the three paths that run the EI/argmax kernel, phases 6 and
+Phases 2-4 and 14 are the paths that run the EI/argmax kernel, phases 6 and
 12 the paths that run the tensor-core flash-attention kernel (the bfloat16
 models; the CUDA-core one must not run there), phase 5's float32 op the
 path of the CUDA-core one, phases 9, 10 and 13 the paths that run the SSD
 kernel, phase 11 the RMSNorm op.  Each sets the launch counts to 0 just
 before its run, reads them just after, and fails unless its kernel ran
-exactly once per fused BO step (phases 2-4), once per layer of each
-forward (phases 6 and 9), once per layer of the prefill and never in a
-decode step (phase 10), once per call of the op (phases 5 and 11), or
+exactly once per fused BO step (phases 2-4), once per lockstep chunk step
+of a fused fleet (phase 14: one launch for all the chunk's rows), once
+per layer of each forward (phases 6 and 9), once per layer of the prefill
+and never in a decode step (phase 10), once per call of the op (phases 5
+and 11), or
 twice per layer and microbatch of a training step, in the forward and in
 the remat recompute (phases 12 and 13).  Qwen3 serving runs no kernel,
 as in the reference (prefill and decode attend through the cache); phase 7
@@ -293,6 +312,25 @@ def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
     return float(np.median(times))
 
 
+def cold_graph_ms(fn, flush_bytes: int = 256 << 20) -> float:
+    """Device time per call of ``fn`` with the card's 50 MB L2 cache flushed
+    before each call, as a caller that finds its inputs cold sees it:
+    `graph_ms` of (flush, call) less `graph_ms` of the flush alone, the
+    flush a write of ``flush_bytes``."""
+    import torch
+
+    buf = torch.empty(flush_bytes // 4, dtype=torch.float32, device="cuda")
+    flush = buf.fill_
+
+    def both():
+        flush(1.0)
+        fn()
+
+    cold = graph_ms(both) - graph_ms(lambda: flush(1.0))
+    del buf
+    return cold
+
+
 def _device_events(events):
     """(name, device µs) of each kernel in a `torch.profiler` run's
     ``key_averages()`` (taken once: on a long trace it takes seconds).  Only
@@ -306,15 +344,16 @@ def _device_events(events):
             yield evt.key, (t if t is not None else evt.self_cuda_time_total)
 
 
-def ei_argmax_bound(n_live: int, n: int, d: int, b: int) -> dict:
-    """Least time for one EI/argmax call: bytes moved (each input read once,
-    each output written once) over HBM bandwidth, and FP32 operations on
-    the ``n_live`` unmasked candidates over the FP32 peak.  Per candidate
-    and training slot: the d-term dot (2d), the distance and Matérn
-    rescale (21, counting exp, sqrt and division as one each), and the
-    forward-substitution row (2 per earlier slot, B(B-1) in all); per
-    candidate, its norm (2d) and the EI tail (20)."""
-    nbytes = 4 * n * d + n + 4 * (b * d + 2 * b + b * b + 4) + 8
+def ei_argmax_bound(n_live: int, n: int, d: int, b: int, jobs: int = 1) -> dict:
+    """Least time for one EI/argmax call over ``jobs`` rows of the job axis:
+    bytes moved (each input read once, each output written once) over HBM
+    bandwidth, and FP32 operations on the ``n_live`` unmasked candidates of
+    all rows over the FP32 peak.  Per candidate and training slot: the
+    d-term dot (2d), the distance and Matérn rescale (21, counting exp,
+    sqrt and division as one each), and the forward-substitution row (2
+    per earlier slot, B(B-1) in all); per candidate, its norm (2d) and the
+    EI tail (20)."""
+    nbytes = jobs * (4 * n * d + n + 4 * (b * d + 2 * b + b * b + 4) + 8)
     flops = n_live * (b * (2 * d + 21) + b * (b - 1) + 2 * d + 20)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FP32_PER_S * 1e3
@@ -506,7 +545,10 @@ def bo_steps(trace, n_prio: int) -> int:
     return len(trace.tried) - min(3, n_prio)
 
 
-def phase_pipeline(dev, seeds, report) -> int:
+def phase_pipeline(dev, seeds, report, traces) -> int:
+    """Phase 2.  ``traces`` receives each search's trace under (job, seed,
+    mode, layout) and each job's split under (job, "split"): phase 14 holds
+    the fleet's traces against them."""
     from repro_torch.cluster.simulator import ClusterSimulator
     from repro_torch.core.bayesopt import cherrypick_search, ruya_search, trial_budget, BOSettings
     from repro_torch.core.profiler import profile_job
@@ -546,6 +588,9 @@ def phase_pipeline(dev, seeds, report) -> int:
                                    to_exhaustion=True, layout="feature", device=dev)
             if (list(rep.priority), list(rep.remaining)) != (prio, rest):
                 raise AssertionError(f"{key}: run_ruya split differs from the fused run's")
+            traces.update({(key, s, "ruya", "fused"): rf, (key, s, "cherrypick", "fused"): cf,
+                           (key, s, "ruya", "feature"): rep.trace,
+                           (key, s, "cherrypick", "feature"): cx, (key, "split"): (prio, rest)})
             fused_steps += bo_steps(rf, len(prio)) + bo_steps(cf, n)
             for ref, got, pools, cap, n_init in (
                 (rep.trace, rf, [prio, rest] if rest else [prio], cap_ruya, min(3, len(prio))),
@@ -684,13 +729,34 @@ def phase_catalog(dev, report) -> int:
     return launches
 
 
+def profiled_window(run, units: int):
+    """``run()`` under `torch.profiler`, its times shared over ``units``
+    steps: (wall ms, device busy ms, EI/argmax kernel ms, device ms by
+    kernel name, the profiler's events), each per unit."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / units
+    busy = kern = 0.0
+    by_name = {}
+    events = prof.key_averages()
+    for name, t in _device_events(events):
+        busy += t
+        by_name[name[:60]] = by_name.get(name[:60], 0.0) + t / units / 1e3
+        if any(k in name for k in EI_KERNEL_NAMES):
+            kern += t
+    return wall, busy / units / 1e3, kern / units / 1e3, by_name, events
+
+
 def step_breakdown(dev, space, trace, steps: int = 10) -> dict:
     """Replays BO steps of ``trace`` under `torch.profiler`: wall time per
     step, device busy time per step, the EI/argmax kernel's share, and the
     device's idle share."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core.fast_bo import SequentialProbe
 
     probe = SequentialProbe(space.encoded(), len(trace.tried), layout="fused", device=dev)
@@ -699,24 +765,14 @@ def step_breakdown(dev, space, trace, steps: int = 10) -> dict:
     obs[trace.tried[:3]] = True
     probe.start(obs, trace.tried[:3], trace.costs[:3])
     probe.step(trace.costs[2])  # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def run():
         for _ in range(steps):
             probe.step(1.0)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / steps
-    busy = kern = 0.0
-    by_name = {}
-    events = prof.key_averages()
-    for name, t in _device_events(events):
-        busy += t
-        by_name[name[:60]] = by_name.get(name[:60], 0.0) + t / steps / 1e3
-        if any(k in name for k in EI_KERNEL_NAMES):
-            kern += t
+
+    wall, busy_ms, kern_ms, by_name, events = profiled_window(run, steps)
     host = sorted(((evt.self_cpu_time_total / steps / 1e3, evt.key) for evt in
                    events if evt.key.startswith("aten::")), reverse=True)[:6]
-    busy_ms, kern_ms = busy / steps / 1e3, kern / steps / 1e3
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
     print(f"  profiled step: wall {wall:.3f} ms, device busy {busy_ms:.4f} ms "
           f"(idle share {1 - busy_ms / wall:.3f}), EI/argmax kernel {kern_ms:.4f} ms")
@@ -777,6 +833,426 @@ def phase_fixture(dev, report) -> int:
     report["fixture"] = {"full_matches": full, "tie_ends": ties,
                          "fused_bo_steps": steps, "launches": launches}
     return launches
+
+
+# ---------------------------------------------------------------- phase 14
+#
+# Runs right after phase 4 (its traces are held against phases 2 and 4);
+# numbered after the model phases, which came first in the port.
+
+FLEET_JOBS = 64  # benchmarks/fleet_bench.py's default --jobs
+FLEET_WAVES = 8  # its streaming scenario's waves
+FLEET_SHAPES = {  # K1 on the fleet's paths: (n, d, B, observed k) of a chunk's row
+    "fleet_table2": (69, 4, 69, 40),
+    "fleet_catalog": (CATALOG_N, CATALOG_D, CATALOG_B, CATALOG_B),
+}
+FLEET_ROWS = 8  # a full lockstep chunk (`repro_torch.fleet.batched_engine._CHUNK`)
+
+
+class ChunkSteps:
+    """Counts the lockstep chunk updates fleet sessions dispatch (each runs
+    one BO step of every row of its chunk) by wrapping the session's update."""
+
+    def __enter__(self):
+        from repro_torch.fleet import session as mod
+
+        self.mod, self.update, self.n = mod, mod._fleet_update, 0
+
+        def counted(*args, **kw):
+            self.n += 1
+            return self.update(*args, **kw)
+
+        mod._fleet_update = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._fleet_update = self.update
+
+
+def fleet_kernel_case(dev, shape, seed0):
+    """K1's inputs for one full chunk: FLEET_ROWS packed states on the job
+    axis, each from the port's own head."""
+    import torch
+
+    n, d, cap, k = shape
+    rows = [kernel_case(dev, seed0 + j, n, d, cap, k) for j in range(FLEET_ROWS)]
+    return types.SimpleNamespace(**{
+        f: torch.cat([getattr(r, f) for r in rows]).contiguous()
+        for f in ("enc", "mask", "feats", "pm", "alpha", "chol", "ls", "y_mean", "y_std", "best")
+    })
+
+
+def hold_fleet(ref, got, enc, pools, cap, dev, n_init):
+    """(full match, detail) of a fleet trace against a sequential one."""
+    from repro_torch.testing import compare_traces, port_ei_at
+
+    cmp = compare_traces(ref, got, port_ei_at(enc, pools, cap, ref, dev), first_bo_step=n_init)
+    return cmp.full, cmp.detail
+
+
+def phase_fleet(dev, report, seq) -> dict:
+    import torch
+
+    from repro_torch.cluster.simulator import ClusterSimulator
+    from repro_torch.core.bayesopt import BOSettings, cherrypick_search, trial_budget
+    from repro_torch.core.memory_model import MemoryCategory, MemoryModel
+    from repro_torch.core.profiler import profile_job
+    from repro_torch.core.search_space import split_masks_device, split_search_space
+    from repro_torch.core.tuner import run_cherrypick, run_ruya
+    from repro_torch.fleet import FleetJob, ProfileCache, TuningSession, cluster_fleet, tune_fleet
+    from repro_torch.kernels.ei_argmax.kernel import ei_argmax_cuda
+    from repro_torch.kernels.ei_argmax.ops import ei_argmax, ei_argmax_plain
+    from repro_torch.testing import EI_ATOL, EI_RTOL, assert_close, pick_agrees
+
+    print(f"phase 14: the fleet on the card (TuningSession, tune_fleet; lockstep chunks of up "
+          f"to {FLEET_ROWS} jobs, K1 at J = chunk rows)")
+    out = {}
+    t_phase = time.perf_counter()
+
+    # (a) The device split, exactly equal to the host split's lists.
+    def split_both(space, model, size, **kw):
+        t0 = time.perf_counter()
+        prio, rest = split_search_space(space, model, size, **kw)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        times = []
+        for _ in range(2):  # the first call pays the sort's set-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mask = split_masks_device(space, model, size, device=dev, **kw)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        mask = mask.cpu().numpy()
+        if np.flatnonzero(mask).tolist() != prio or np.flatnonzero(~mask).tolist() != rest:
+            raise AssertionError(f"device split differs from the host split ({model.category})")
+        return len(prio), host_ms, times[-1]
+
+    print("  (a) device split vs host split (mask == lists, exactly)")
+    paper = [0.0, 0.0]
+    for key in JOB_ORDER:
+        sim = ClusterSimulator.for_job(key)
+        size = sim.job.input_gb * GiB
+        k, h_ms, d_ms = split_both(sim.space, profile_job(sim.profile_run_fn(), size).model,
+                                   size, per_node_overhead=0.5 * GiB)
+        paper[0] += h_ms
+        paper[1] += d_ms
+    print(f"    paper grid, 16 jobs: equal; host {paper[0]:.3f} ms, device {paper[1]:.3f} ms "
+          f"in all")
+    cat_space, cat_table = synth_space(CATALOG_N, CATALOG_D, seed=7, mem_unit=1.0)
+
+    def mm(cat, slope=0.0, intercept=0.0):
+        return MemoryModel(category=MemoryCategory(cat), slope=slope, intercept=intercept,
+                           r2=1.0, sizes=(1.0,), readings=(5e4,))
+
+    split_rows = {}
+    for name, model, size, want in (
+        ("FLAT", mm("flat"), 1.0, round(CATALOG_N / 7)),
+        ("LINEAR, some qualify", mm("linear", 1.0), 5e4, None),
+        ("LINEAR, none qualify (extremes)", mm("linear", 10.0), 1e5, 2 * round(0.15 * CATALOG_N)),
+        ("LINEAR, all qualify", mm("linear", 1.0, -1.0), 0.0, CATALOG_N),
+        ("UNCLEAR", mm("unclear"), 1.0, CATALOG_N),
+    ):
+        k, h_ms, d_ms = split_both(cat_space, model, size, per_node_overhead=0.5)
+        if (want is not None and k != want) or not 0 < k <= CATALOG_N:
+            raise AssertionError(f"catalog split {name}: {k} in the priority group, want {want}")
+        split_rows[name] = {"priority": k, "host_ms": h_ms, "device_ms": d_ms}
+        print(f"    catalog n={CATALOG_N}, {name}: {k} in the priority group, equal; host "
+              f"{h_ms:.2f} ms, device {d_ms:.3f} ms")
+    out["split"] = {"paper_host_ms": paper[0], "paper_device_ms": paper[1], "catalog": split_rows}
+
+    # (b) Table II through tune_fleet, held against phase 2's sequential traces.
+    jobs = cluster_fleet(JOB_ORDER)
+    fleet = [j for j in jobs for _ in SEEDS]
+    seeds = [s for _ in jobs for s in SEEDS]
+    print(f"  (b) Table II through tune_fleet: {len(jobs)} jobs x seeds {list(SEEDS)}, to "
+          f"exhaustion, both modes")
+    table2 = {}
+    rows = {key: {} for key in JOB_ORDER}
+    launches_b = steps_b = 0
+    for layout, run_seeds in (("fused", SEEDS), ("feature", (0, 1)), ("gather", (0, 1))):
+        full = ties = 0
+        notes = []
+        table2[layout] = {}
+        for mode in ("ruya", "cherrypick"):
+            sel = [(j, s) for j, s in zip(fleet, seeds) if s in run_seeds]
+            ei_argmax_cuda.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with ChunkSteps() as cs:
+                reps = tune_fleet([j for j, _ in sel], [np.random.default_rng(s) for _, s in sel],
+                                  mode=mode, to_exhaustion=True, layout=layout, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ei_argmax_cuda.launches
+            want = cs.n if layout == "fused" else 0
+            if launches != want:
+                raise AssertionError(f"{layout} {mode}: K1 launched {launches} times over "
+                                     f"{cs.n} chunk steps")
+            if layout == "fused":
+                launches_b += launches
+                steps_b += cs.n
+                table2["fused"][mode] = {"chunk_steps": cs.n, "launches": launches,
+                                         "seconds": wall, "ms_per_chunk_step": wall * 1e3 / cs.n}
+            print(f"    {layout:7s} {mode:10s}: {len(sel)} searches in {cs.n} chunk steps, "
+                  f"{wall:.2f} s ({wall * 1e3 / cs.n:.3f} ms a chunk step, wall); K1 launches "
+                  f"{launches}")
+            for (job, s), rep in zip(sel, reps):
+                prio, rest = seq[(job.name, "split")]
+                if mode == "cherrypick":
+                    prio, rest = list(range(len(job.space))), []
+                if (list(rep.priority), list(rep.remaining)) != (prio, rest):
+                    raise AssertionError(f"{job.name}: the fleet's split differs from phase 2's")
+                got = rep.trace
+                if len(got.tried) != len(job.space) or not np.all(np.isfinite(got.costs)):
+                    raise AssertionError(f"{job.name} seed {s} {mode}: bad fleet trace")
+                ref = seq[(job.name, s, mode, "feature" if layout == "feature" else "fused")]
+                pools = [prio, rest] if rest else [prio]
+                ok, detail = hold_fleet(ref, got, job.space.encoded(), pools,
+                                        trial_budget(len(prio), len(rest), BOSettings()),
+                                        dev, min(3, len(prio)))
+                full += ok
+                ties += not ok
+                if not ok:
+                    notes.append(f"{job.name} seed {s} {mode}: {detail}")
+                if layout == "fused":
+                    rows[job.name].setdefault(mode, []).append(got)
+        print(f"    {layout}: {full} traces match phase 2's in full, {ties} end at a certified "
+              f"tie")
+        for note in notes[:4]:
+            print(f"      tie: {note}")
+        if full == 0:
+            raise AssertionError(f"no {layout} fleet trace matched phase 2's in full")
+        table2[layout].update(full_matches=full, tie_ends=ties)
+    quot = {}
+    for th in THRESHOLDS:
+        ru = float(np.mean([mean_iterations_until(rows[k]["ruya"], th) for k in JOB_ORDER]))
+        cp = float(np.mean([mean_iterations_until(rows[k]["cherrypick"], th) for k in JOB_ORDER]))
+        quot[th] = ru / cp
+    seq_quot = report.get("pipeline", {}).get("quotients", {})
+    print("    Table II through the fleet: " + ", ".join(
+        f"c<={th}: {quot[th]:.3f} (phase 2: {seq_quot.get(str(th), float('nan')):.3f})"
+        for th in THRESHOLDS))
+    moved = any(abs(quot[th] - seq_quot.get(str(th), quot[th])) > 0 for th in THRESHOLDS)
+    if moved and table2["fused"]["tie_ends"] == 0:
+        raise AssertionError(f"the fleet's quotients {quot} differ from phase 2's {seq_quot} "
+                             f"with every trace a full match")
+    table2["quotients"] = {str(k): v for k, v in quot.items()}
+    out["table2"] = table2
+
+    # (c) The catalog fleet: 64 CherryPick jobs, eight chunks of eight.
+    st = BOSettings(max_iters=CATALOG_B)
+    print(f"  (c) catalog fleet: {FLEET_JOBS} CherryPick jobs over n={CATALOG_N} d={CATALOG_D}, "
+          f"max_iters={CATALOG_B}, seeds 0-{FLEET_JOBS - 1}, fused, to the budget")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    session = TuningSession(settings=st, mode="cherrypick", warm_start=False,
+                            to_exhaustion=True, layout="fused", device=dev)
+    job = FleetJob(name="catalog", space=cat_space, cost_table=cat_table)
+    handles = [session.submit(job, seed=s) for s in range(FLEET_JOBS)]
+    ei_argmax_cuda.launches = 0
+    step_ms, step_wall = [], []
+    profiled = None
+    with ChunkSteps() as cs:
+        t0 = time.perf_counter()
+        left = session.step()  # admission (8 chunks moved to the card) and the first step
+        torch.cuda.synchronize()
+        admit_s = time.perf_counter() - t0
+        k = 1
+        while left:
+            chunks = -(-left // FLEET_ROWS)  # every chunk is full and retires last
+            if k == 8:  # a profiled window of four session steps (32 chunk steps)
+                profiled = fleet_breakdown(session, 4, chunks)
+                k += 4
+                continue
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            a.record()
+            left = session.step()
+            b.record()
+            b.synchronize()
+            step_wall.append((time.perf_counter() - t0) * 1e3 / chunks)
+            step_ms.append(a.elapsed_time(b) / chunks)
+            k += 1
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    launches_c = ei_argmax_cuda.launches
+    outs = [h.outcome() for h in handles]
+    # A cold chunk takes its budget of steps (the scripted init ones included:
+    # `fleet_step` runs the BO step on every row each call) and one more.
+    if launches_c != cs.n or cs.n != (FLEET_JOBS // FLEET_ROWS) * (CATALOG_B + 1):
+        raise AssertionError(f"catalog fleet: K1 launched {launches_c} times over {cs.n} chunk "
+                             f"steps")
+    if any(len(o.records) != CATALOG_B or not np.all(np.isfinite([r.cost for r in o.records]))
+           for o in outs):
+        raise AssertionError("a catalog fleet job did not run its 24 finite trials")
+    med_ms, med_wall = float(np.median(step_ms)), float(np.median(step_wall))
+    print(f"    {cs.n} chunk steps, K1 launches {launches_c}; admission and first step "
+          f"{admit_s * 1e3:.1f} ms; ms per chunk step {med_ms:.3f} (CUDA events), "
+          f"{med_wall:.3f} (wall), medians over {len(step_ms)} session steps; per job-step "
+          f"{med_wall / FLEET_ROWS:.3f} ms (phase 3's sequential step "
+          f"{report.get('catalog', {}).get('step_ms_median', float('nan')):.3f} ms); peak "
+          f"allocated {peak} B over the start")
+    idle = profiled["idle_share"]
+    print(f"    profiled chunk step: wall {profiled['wall_ms']:.3f} ms, device busy "
+          f"{profiled['device_busy_ms']:.4f} ms (idle share "
+          f"{'not measured: no device time traced' if idle is None else f'{idle:.3f}'}), "
+          f"K1 {profiled['kernel_ms']:.4f} ms")
+    full_c = 0
+    for s in range(0, FLEET_JOBS, FLEET_ROWS):  # one job of each chunk, sequentially
+        ref = cherrypick_search(cat_space, lambda i: float(cat_table[i]), np.random.default_rng(s),
+                                settings=st, to_exhaustion=True, layout="fused", device=dev)
+        ok, detail = hold_fleet(ref, outs[s].trace(), cat_space.encoded(),
+                                [list(range(CATALOG_N))], CATALOG_B, dev, 3)
+        full_c += ok
+        print(f"    seed {s} vs SequentialProbe: {'matches' if ok else detail}")
+    if full_c == 0:
+        raise AssertionError("no catalog fleet job matched its sequential search in full")
+    out["catalog"] = {"chunk_steps": cs.n, "launches": launches_c, "admit_ms": admit_s * 1e3,
+                      "ms_per_chunk_step_events": med_ms, "ms_per_chunk_step_wall": med_wall,
+                      "ms_per_job_step": med_wall / FLEET_ROWS, "peak_bytes": int(peak),
+                      "full_matches": full_c, "profiled": profiled}
+    del session, handles, outs
+    torch.cuda.empty_cache()
+
+    # (d) n512-budgeted through a TuningSession, feature then fused.
+    path = ROOT / "tests" / "golden" / "n512-budgeted.json"
+    space, table = synth_space(512, 5, seed=0, mem_unit=GiB)
+    st = BOSettings(max_iters=10)
+    prio, rest = list(range(50)), list(range(50, 512))
+    want = report.get("fixture", {}).get("full_matches", 1)
+    out["fixture"] = {}
+    for layout in ("feature", "fused"):
+        session = TuningSession(settings=st, to_exhaustion=True, layout=layout, device=dev)
+        refs = fixture_traces(path)
+        hs = [session.submit(FleetJob(name=f"j{s}", space=space, cost_table=table), seed=s,
+                             priority=prio, remaining=rest) for s in range(len(refs))]
+        ei_argmax_cuda.launches = 0
+        with ChunkSteps() as cs:
+            session.drain()
+        if ei_argmax_cuda.launches != (cs.n if layout == "fused" else 0):
+            raise AssertionError(f"n512 {layout}: K1 launched {ei_argmax_cuda.launches} times "
+                                 f"over {cs.n} chunk steps")
+        full = 0
+        for ref, h in zip(refs, hs):
+            ok, detail = hold_fleet(ref, h.outcome().trace(), space.encoded(), [prio, rest],
+                                    trial_budget(len(prio), len(rest), st), dev, 3)
+            full += ok
+        print(f"  (d) n512-budgeted through a session, {layout}: {full} of {len(refs)} match "
+              f"the fixture in full (phase 4, sequential: {want}); {cs.n} chunk steps, K1 "
+              f"launches {ei_argmax_cuda.launches}")
+        if full < want:
+            raise AssertionError(f"n512 {layout}: {full} full matches, fewer than phase 4's {want}")
+        out["fixture"][layout] = {"full_matches": full, "chunk_steps": cs.n}
+
+    # (e) Warm-start streaming: fleet_bench's scenario, twice.
+    def stream():
+        per = FLEET_JOBS // FLEET_WAVES
+        keys = [JOB_ORDER[i % len(JOB_ORDER)] for i in range(per)]
+        waves = [cluster_fleet(keys) for _ in range(FLEET_WAVES)]
+        session = TuningSession(cache=ProfileCache(), warm_start=True, to_exhaustion=False,
+                                device=dev)
+        t0 = time.perf_counter()
+        submitted = 0
+        for wave in waves:
+            for i, job in enumerate(wave):
+                session.submit(job, seed=1000 + submitted + i)
+            submitted += len(wave)
+            while session.step():
+                pass
+        return session, time.perf_counter() - t0
+
+    runs = [stream() for _ in range(2)]
+    dicts = [[o.as_dict() for o in s.results()] for s, _ in runs]
+    if dicts[0] != dicts[1]:
+        raise AssertionError("the warm-start stream did not repeat identically")
+    session, secs = runs[0]
+    outs = session.results()
+    warm = [o for o in outs if o.seeded]
+    cold = [o for o in outs if not o.seeded]
+    cold_iters = float(np.mean([len(o.records) for o in cold]))
+    warm_iters = float(np.mean([len(o.records) for o in warm])) if warm else float("nan")
+    print(f"  (e) warm-start stream: {len(outs)} jobs in {FLEET_WAVES} waves; warm hits "
+          f"{session.warm_hits}, seeded trials {session.warm_trials}, cache hits "
+          f"{session.cache.hits} / misses {session.cache.misses}; mean fresh trials cold "
+          f"{cold_iters:.3f} ({len(cold)} jobs), warm {warm_iters:.3f} ({len(warm)} jobs); "
+          f"{secs:.2f} s and {runs[1][1]:.2f} s; the two runs' outcomes identical")
+    if not warm or not cold or not warm_iters < cold_iters:
+        raise AssertionError(f"warm-started searches should take fewer fresh trials: warm "
+                             f"{warm_iters} vs cold {cold_iters}")
+    out["stream"] = {"jobs": len(outs), "warm_hits": session.warm_hits,
+                     "seeded_trials": session.warm_trials, "cold_mean_fresh": cold_iters,
+                     "warm_mean_fresh": warm_iters, "seconds": [secs, runs[1][1]]}
+    del runs, session
+
+    # (f) The cost_table paths, one job each, held against phase 2's.
+    key = JOB_ORDER[2]
+    sim = ClusterSimulator.for_job(key)
+    size = sim.job.input_gb * GiB
+    prio, rest = seq[(key, "split")]
+    rep = run_ruya(profile_run=sim.profile_run_fn(), full_input_size=size, space=sim.space,
+                   cost_table=sim.normalized, rng=np.random.default_rng(0),
+                   per_node_overhead=0.5 * GiB, to_exhaustion=True, device=dev)
+    cp = run_cherrypick(space=sim.space, cost_table=sim.normalized, rng=np.random.default_rng(0),
+                        to_exhaustion=True, device=dev)
+    if (list(rep.priority), list(rep.remaining)) != (prio, rest):
+        raise AssertionError("run_ruya(cost_table=...) split differs from phase 2's")
+    n = len(sim.space)
+    ok_r, det_r = hold_fleet(seq[(key, 0, "ruya", "feature")], rep.trace, sim.space.encoded(),
+                             [prio, rest] if rest else [prio], n, dev, min(3, len(prio)))
+    ok_c, det_c = hold_fleet(seq[(key, 0, "cherrypick", "feature")], cp, sim.space.encoded(),
+                             [list(range(n))], n, dev, 3)
+    print(f"  (f) cost_table paths, {key} seed 0: run_ruya {'matches' if ok_r else det_r}, "
+          f"run_cherrypick {'matches' if ok_c else det_c} (phase 2's feature traces)")
+
+    # K1 at J = 8, the shapes of the fleet's two paths.
+    times = {}
+    for path, shape in FLEET_SHAPES.items():
+        n, d, cap, k = shape
+        c = fleet_kernel_case(dev, shape, 70)
+        before = ei_argmax_cuda.launches
+        k_idx, k_val = ei_argmax(*tail_args(c))
+        p_idx, p_val = ei_argmax_plain(*tail_args(c))
+        torch.cuda.synchronize()
+        if ei_argmax_cuda.launches != before + 1:
+            raise AssertionError(f"{path}: {ei_argmax_cuda.launches - before} launches for one call")
+        err = assert_close(p_val.cpu().numpy(), k_val.cpu().numpy(), rtol=EI_RTOL, atol=EI_ATOL,
+                           what=f"{path} max EI at J={FLEET_ROWS}")
+        for j in range(FLEET_ROWS):
+            row = types.SimpleNamespace(**{f: getattr(c, f)[j:j + 1] for f in vars(c)})
+            if not pick_agrees(int(p_idx[j]), int(k_idx[j]), full_ei(row)):
+                raise AssertionError(f"{path} row {j}: kernel {int(k_idx[j])} vs plain "
+                                     f"{int(p_idx[j])}, not a tie")
+        ms = cuda_time_ms(lambda: ei_argmax(*tail_args(c)))
+        plain_ms = cuda_time_ms(lambda: ei_argmax_plain(*tail_args(c)))
+        k_dev = graph_ms(lambda: ei_argmax(*tail_args(c)))
+        p_dev = graph_ms(lambda: ei_argmax_plain(*tail_args(c)), calls=2)
+        bound = ei_argmax_bound(int(c.mask.sum()), n, d, cap, FLEET_ROWS)
+        times[path] = dict(shape=f"J={FLEET_ROWS} n={n} d={d} B={cap}", ms=ms, plain_ms=plain_ms,
+                           device_ms=k_dev, plain_device_ms=p_dev, max_abs_err=err, **bound)
+        print(f"  K1 at J={FLEET_ROWS} n={n} d={d} B={cap}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms (events); device {k_dev:.4f} ms, plain {p_dev:.4f} ms "
+              f"(graph replay; {k_dev / FLEET_ROWS:.4f} ms a row); bound "
+              f"{bound['bound_ms']:.6f} ms ({bound['bound_by']}); |dEI| {err:.3e}")
+    out["kernel_times"] = times
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 14 wall time {out['seconds']:.1f} s")
+    report["fleet"] = out
+    return {"launches": {"fleet_table2": launches_b, "fleet_catalog": launches_c},
+            "times": times}
+
+
+def fleet_breakdown(session, steps: int, chunks: int) -> dict:
+    """``steps`` session steps of ``chunks`` live chunks each under
+    `torch.profiler`: wall and device busy time per chunk step, K1's share,
+    and the device's idle share (None where the trace holds no device
+    time)."""
+    def run():
+        for _ in range(steps):
+            session.step()
+
+    wall, busy_ms, kern_ms, _, _ = profiled_window(run, steps * chunks)
+    return {"wall_ms": wall, "device_busy_ms": busy_ms, "kernel_ms": kern_ms,
+            "idle_share": 1 - busy_ms / wall if busy_ms > 0 else None}
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1716,6 +2192,10 @@ def phase_rmsnorm(dev, report) -> dict:
             k_dev = graph_ms(lambda: rmsnorm(x, s, RN_EPS))
             p_dev = graph_ms(lambda: rmsnorm_plain(x, s, RN_EPS))
             l_dev = graph_ms(lib)
+            # A working set under 50 MB stays in L2 across graph replays,
+            # where no HBM bound binds it: also timed with L2 flushed.
+            k_cold = cold_graph_ms(lambda: rmsnorm(x, s, RN_EPS))
+            l_cold = cold_graph_ms(lib)
             bound = rmsnorm_bound(x.numel() // d, d, x.element_size())
             print(f"  time at {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, F.rms_norm "
                   f"{lib_ms:.4f} ms (CUDA events around one call, median of 30); device time per "
@@ -1724,9 +2204,13 @@ def phase_rmsnorm(dev, report) -> dict:
                   f"({bound['bound_by']}; {bound['bytes']} B, {bound['flops']} flop); "
                   f"max |kernel - F.rms_norm| {err_lib:.3e}; device time kernel / F.rms_norm "
                   f"{k_dev / l_dev:.3f}, kernel at {bound['bound_ms'] / k_dev:.3f} of its bound")
+            print(f"    with L2 flushed before each call: kernel {k_cold:.4f} ms, F.rms_norm "
+                  f"{l_cold:.4f} ms of device time; kernel at {bound['bound_ms'] / k_cold:.3f} "
+                  f"of its bound")
             times[name] = dict(shape=name, max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
                                device_ms=k_dev, plain_device_ms=p_dev, library_ms=lib_ms,
-                               library_device_ms=l_dev, library_err=err_lib, **bound)
+                               library_device_ms=l_dev, device_cold_ms=k_cold,
+                               library_device_cold_ms=l_cold, library_err=err_lib, **bound)
     report["rmsnorm"] = {"case_errs": errs, "launches": launches, "shapes": times}
     return {"launches_per_call": launches // len(cases), "times": times}
 
@@ -2095,12 +2579,14 @@ def main(argv=None) -> int:
           f"per block (any shape)")
 
     failed = []
-    times, fa_times, ssd_times, rn, launches = None, None, None, None, {}
+    times, fa_times, ssd_times, rn, fleet, launches = None, None, None, None, None, {}
+    seq = {}  # phase 2's traces, which phase 14 holds the fleet against
     for name, phase in (
         ("kernel", lambda: phase_kernel(dev, report)),
-        ("pipeline", lambda: phase_pipeline(dev, SEEDS, report)),
+        ("pipeline", lambda: phase_pipeline(dev, SEEDS, report, seq)),
         ("catalog", lambda: phase_catalog(dev, report)),
         ("fixture", lambda: phase_fixture(dev, report)),
+        ("fleet", lambda: phase_fleet(dev, report, seq)),
         ("flash", lambda: phase_flash(dev, report)),
         ("forward", lambda: phase_forward(dev, report)),
         ("serve", lambda: phase_serve(dev, report)),
@@ -2128,6 +2614,8 @@ def main(argv=None) -> int:
             ssd_times = out
         elif name == "rmsnorm":
             rn = out
+        elif name == "fleet":
+            fleet = out
         elif name != "serve":
             launches[name] = out
     if args.out is not None:
@@ -2156,6 +2644,24 @@ def main(argv=None) -> int:
         "bound_by": t["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this function
     } for path, t in times.items()]
+    # K1 on the fleet's paths (phase 14): one launch a chunk step, J = 8 rows.
+    kernels.extend({
+        "name": "ei_argmax",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ei_argmax/csrc/ei_argmax.cu",
+        "replaces": "src/repro/kernels/ei_argmax/kernel.py:110",
+        "path": path,
+        "shape": t["shape"],
+        "launches": fleet["launches"][path],
+        "max_abs_err": t["max_abs_err"],
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "device_ms": t["device_ms"],
+        "plain_device_ms": t["plain_device_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": None,
+    } for path, t in fleet["times"].items())
     # K2: the tensor-core kernel runs the bfloat16 paths (a training
     # microbatch runs the forward's shape); the CUDA-core kernel's path is
     # the float32 op, driven once in phase 5.

@@ -200,9 +200,10 @@ def cherrypick_search(
 ) -> SearchTrace:
     """Baseline: plain CherryPick BO over the full space.
 
-    ``layout`` selects the packed step's tail — "feature" (EI over the full
-    (B,n) block in plain PyTorch) or "fused" (the CUDA EI/argmax kernel on
-    the card, its plain version on the CPU).
+    ``layout`` selects the packed step's geometry and tail — "feature" (EI
+    over the full (B,n) block in plain PyTorch), "fused" (the CUDA
+    EI/argmax kernel on the card, its plain version on the CPU) or "gather"
+    (the blocks gathered from an (n,n) distance tensor).
     """
     return _bo_loop(
         space, cost_fn, rng, [list(range(len(space)))], settings,

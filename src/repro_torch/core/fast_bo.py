@@ -1,19 +1,29 @@
 """Packed-observation Bayesian-optimization step and search-state update.
 
-Port of `repro/core/fast_bo.py` (the "feature" and "fused" layouts).  At
-most B points are ever observed per search (B = the trial budget), so the
-GP never needs full-extent linear algebra: the state carries a packed
-(B,d) feature buffer of the observed points in trial order, and each step
-computes the (B,B) training block and the candidates' posterior against
-the static (n,d) encoding.  Nothing of extent n×n exists.
+Port of `repro/core/fast_bo.py`.  At most B points are ever observed per
+search (B = the trial budget), so the GP never needs full-extent linear
+algebra: the state carries a packed (B,d) feature buffer of the observed
+points in trial order, and each step computes the (B,B) training block and
+the candidates' posterior against the static (n,d) encoding.
 
-    layout   per-step transient   EI tail
-    feature  O(B·n)               `tile.ei_from_sqdist` on the full (B,n) block
-    fused    O(n) masks only      the CUDA kernel (`kernels.ei_argmax`), or its
-                                  plain version on the CPU
+    layout   geometry   per-step transient   EI tail
+    feature  (n,d)      O(B·n)               `tile.ei_from_sqdist` on the full (B,n) block
+    fused    (n,d)      O(n) masks only      the CUDA kernel (`kernels.ei_argmax`), or its
+                                             plain version on the CPU
+    gather   (n,n)      O(B·n)               blocks gathered from `precompute_d2`'s
+                                             tensor, then the feature layout's tail
+    dense    (n,d)      O(n²), 18 O(n³)      `bo_step_core_dense`: the full-extent
+                                             baseline, not a `fleet_step` layout
+
+The gather layout holds an (n,n) tensor for the search's lifetime, an O(n²)
+wall near n = 10⁴; it is kept, as in the reference, to cross-check the
+feature layout.  The dense step and `_masked_posterior` are the references
+the packed math is checked against.
 
 Every tensor carries a leading job axis J: the sequential probe runs J = 1,
-and a fleet of lockstep searches can run the same `fleet_step` at J > 1.
+and the fleet engine (`repro_torch.fleet`) runs the same `fleet_step` over a
+lockstep chunk of J jobs.  A row's result does not depend on the other rows:
+each op is batched over J, and no reduction crosses it.
 
 Padding is exact: packed slots ≥ t are masked, their kernel rows and
 columns zeroed and their diagonal set to 1, so the (B,B) Cholesky factor
@@ -36,7 +46,14 @@ from typing import Mapping, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.gp import LENGTHSCALES, NOISES, matern52_from_sqdist, pairwise_sqdist
+from repro_torch.core.gp import (
+    LENGTHSCALES,
+    NOISES,
+    GPParams,
+    matern52,
+    matern52_from_sqdist,
+    pairwise_sqdist,
+)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.ei_argmax.ops import ei_argmax
 from repro_torch.kernels.ei_argmax.tile import ei_from_sqdist
@@ -46,14 +63,18 @@ __all__ = [
     "SequentialProbe",
     "bo_step",
     "bo_step_core",
+    "bo_step_core_dense",
     "bo_step_core_fused",
+    "bo_step_core_gather",
     "encode_features",
     "fleet_step",
+    "gather_sqdist_blocks",
     "packed_sqdist_blocks",
+    "precompute_d2",
 ]
 
 _JITTER = 1e-8
-_LAYOUTS = ("feature", "fused")
+_LAYOUTS = ("feature", "gather", "fused")
 
 
 def _check_layout(layout: str) -> None:
@@ -65,6 +86,17 @@ def encode_features(encoded) -> np.ndarray:
     """Canonical float32 host view of the encoded space (the rows the feature
     buffer is filled with)."""
     return np.asarray(encoded, np.float32)
+
+
+def _pairwise_sqdist_f32(encoded: torch.Tensor) -> torch.Tensor:
+    return pairwise_sqdist(encoded.to(torch.float32))
+
+
+def precompute_d2(encoded, device: DeviceLike = None) -> torch.Tensor:
+    """(n,n) raw pairwise squared distances over the encoded space, float32,
+    on ``device``: the gather layout's geometry, computed once per space."""
+    enc = torch.from_numpy(np.ascontiguousarray(encode_features(encoded)))
+    return _pairwise_sqdist_f32(enc.to(resolve_device(device)))
 
 
 def packed_sqdist_blocks(
@@ -84,6 +116,50 @@ def packed_sqdist_blocks(
     return torch.gather(d2_bn, 2, idx), d2_bn
 
 
+def gather_sqdist_blocks(
+    d2: torch.Tensor,  # (J, n, n) precomputed raw squared distances
+    tried: torch.Tensor,  # (J, B) i32 trial log, -1 padded
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """((J,B,B), (J,B,n)) blocks gathered from the precomputed tensor; padded
+    slots gather row and column 0 (finite garbage, masked downstream)."""
+    b = tried.shape[-1]
+    idx = tried.clamp_min(0).long()
+    d2_bn = torch.gather(d2, 1, idx[..., None].expand(-1, -1, d2.shape[-1]))
+    return torch.gather(d2_bn, 2, idx[:, None, :].expand(-1, b, -1)), d2_bn
+
+
+def _masked_posterior(
+    x: torch.Tensor,  # (n, d)
+    obs_mask: torch.Tensor,  # (n,) bool
+    y_n: torch.Tensor,  # (n,) standardized targets, 0 where unobserved
+    lengthscale: torch.Tensor,
+    noise: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Reference form of the exact-masking construction: (lml, mean, var)
+    over all n points for one (lengthscale, noise), the observed set masked
+    in place at extent n (the packed steps compute the same math with it
+    packed into (B,) buffers)."""
+    m = obs_mask.to(x.dtype)
+    params = GPParams(lengthscale=lengthscale, amplitude=torch.ones((), dtype=x.dtype,
+                                                                    device=x.device),
+                      noise=noise)
+    k = matern52(x, x, params)
+    k_eff = k * (m[:, None] * m[None, :]) + torch.diag(
+        torch.where(obs_mask, noise + _JITTER, torch.ones_like(m)))
+    chol = torch.linalg.cholesky(k_eff)
+    alpha = torch.cholesky_solve((y_n * m)[:, None], chol)[:, 0]
+    lml = (
+        -0.5 * (y_n * m) @ alpha
+        - torch.sum(torch.log(torch.diagonal(chol)) * m)
+        - 0.5 * torch.sum(m) * math.log(2.0 * math.pi)
+    )
+    k_star = k * m[:, None]
+    mean_n = k_star.T @ alpha
+    v = torch.linalg.solve_triangular(chol, k_star, upper=False)
+    var_n = torch.clamp_min(1.0 - torch.sum(v * v, 0), 1e-12)
+    return lml, mean_n, var_n
+
+
 def _grid_factors(
     d2_bb: torch.Tensor,  # (J, B, B) raw squared distances, training block
     py: torch.Tensor,  # (J, B) f32 packed observed costs, trial order
@@ -96,24 +172,33 @@ def _grid_factors(
     ``ls18`` (18,) and ``lmls`` (J,18), ``chols`` (J,18,B,B), ``alphas``
     (J,18,B) in the reference's lengthscale-major grid order.
     """
-    J, b = py.shape
-    dev = py.device
-    pmask = torch.arange(b, device=dev)[None, :] < t[:, None]
+    pmask = torch.arange(py.shape[1], device=py.device)[None, :] < t[:, None]
+    return _masked_grid_factors(d2_bb, py, pmask)
+
+
+def _masked_grid_factors(
+    d2: torch.Tensor,  # (J, m, m) raw squared distances among the m slots
+    y: torch.Tensor,  # (J, m) observed costs, finite garbage where unobserved
+    pmask: torch.Tensor,  # (J, m) bool observed slots
+) -> Tuple[torch.Tensor, ...]:
+    """`_grid_factors` over any set of observed slots: the packed layouts'
+    prefix of t slots, or the dense step's observation mask over all n."""
+    dev = y.device
     pm = pmask.to(torch.float32)
 
-    py = py.to(torch.float32)
+    y = y.to(torch.float32)
     n_obs = torch.clamp_min(pm.sum(-1), 1.0)
-    y_mean = torch.sum(py * pm, -1) / n_obs
-    y_var = torch.sum(pm * (py - y_mean[:, None]) ** 2, -1) / n_obs
+    y_mean = torch.sum(y * pm, -1) / n_obs
+    y_var = torch.sum(pm * (y - y_mean[:, None]) ** 2, -1) / n_obs
     y_std = torch.clamp_min(torch.sqrt(y_var), 1e-8)
-    y_train = torch.where(pmask, (py - y_mean[:, None]) / y_std[:, None], 0.0)
+    y_train = torch.where(pmask, (y - y_mean[:, None]) / y_std[:, None], 0.0)
 
     ls = torch.tensor(LENGTHSCALES, dtype=torch.float32, device=dev)
     nz = torch.tensor(NOISES, dtype=torch.float32, device=dev)
     n_nz = nz.shape[0]
-    ks = matern52_from_sqdist(d2_bb[:, None], ls[None, :, None, None])  # (J,6,B,B)
+    ks = matern52_from_sqdist(d2[:, None], ls[None, :, None, None])  # (J,6,m,m)
     mm = pm[:, :, None] * pm[:, None, :]
-    ks18 = (ks * mm[:, None]).repeat_interleave(n_nz, dim=1)  # (J,18,B,B)
+    ks18 = (ks * mm[:, None]).repeat_interleave(n_nz, dim=1)  # (J,18,m,m)
     nz18 = nz.repeat(ls.shape[0])  # ls-major: combo h = (h // 3, h % 3)
     diag = torch.where(pmask[:, None, :], nz18[None, :, None] + _JITTER, 1.0)
     chols, info = torch.linalg.cholesky_ex(ks18 + torch.diag_embed(diag))
@@ -121,15 +206,28 @@ def _grid_factors(
     chols = torch.where(failed, torch.full_like(chols, math.nan).tril(), chols)
     alphas = torch.cholesky_solve(
         y_train[:, None, :, None].expand(-1, chols.shape[1], -1, -1), chols
-    )[..., 0]  # (J,18,B)
+    )[..., 0]  # (J,18,m)
     lmls = (
         -0.5 * torch.sum(y_train[:, None, :] * alphas, -1)
         - torch.sum(torch.log(torch.diagonal(chols, dim1=-2, dim2=-1)) * pm[:, None, :], -1)
         - 0.5 * pm.sum(-1)[:, None] * math.log(2.0 * math.pi)
     )
     lmls = torch.where(torch.isfinite(lmls), lmls, -math.inf)
-    best = torch.amin(torch.where(pmask, py, math.inf), -1)
+    best = torch.amin(torch.where(pmask, y, math.inf), -1)
     return pm, best, y_mean, y_std, ls.repeat_interleave(n_nz), lmls, chols, alphas
+
+
+def _select(factors) -> Tuple[torch.Tensor, ...]:
+    """Marginal-likelihood selection over the 18 grid points' factors:
+    ``(pm, best, ls_sel, chol, alpha, y_mean, y_std)``, each with the
+    leading job axis."""
+    pm, best, y_mean, y_std, ls18, lmls, chols, alphas = factors
+    best_h = torch.argmax(lmls, -1)  # (J,)
+    rows = torch.arange(lmls.shape[0], device=lmls.device)
+    return (
+        pm, best, ls18[best_h], chols[rows, best_h], alphas[rows, best_h],
+        y_mean, y_std,
+    )
 
 
 def _packed_head(
@@ -142,13 +240,7 @@ def _packed_head(
     Returns ``(pm, best, ls_sel, chol, alpha, y_mean, y_std)``, each with
     the leading job axis.
     """
-    pm, best, y_mean, y_std, ls18, lmls, chols, alphas = _grid_factors(d2_bb, py, t)
-    best_h = torch.argmax(lmls, -1)  # (J,)
-    rows = torch.arange(py.shape[0], device=py.device)
-    return (
-        pm, best, ls18[best_h], chols[rows, best_h], alphas[rows, best_h],
-        y_mean, y_std,
-    )
+    return _select(_grid_factors(d2_bb, py, t))
 
 
 def _packed_core(d2_bb, d2_bn, py, t, obs_mask, cand_mask, xi: float):
@@ -208,6 +300,42 @@ def bo_step_core_fused(
     return pick, max_ei, best
 
 
+def bo_step_core_gather(
+    d2: torch.Tensor,  # (J, n, n) raw pairwise squared distances (precompute_d2)
+    tried: torch.Tensor,  # (J, B) i32 trial log, -1 padded
+    py: torch.Tensor,  # (J, B) f32 packed observed costs
+    t: torch.Tensor,  # (J,) i32 observations made
+    obs_mask: torch.Tensor,  # (J, n) bool configurations already tried
+    cand_mask: torch.Tensor,  # (J, n) bool current candidate pool
+    xi: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One gather-layout BO iteration: (pick, max_ei, best), each (J,).  The
+    blocks come from the search's (n,n) tensor instead of the feature
+    buffer; everything after them is the feature layout's."""
+    d2_bb, d2_bn = gather_sqdist_blocks(d2, tried)
+    return _packed_core(d2_bb, d2_bn, py, t, obs_mask, cand_mask, xi)
+
+
+def bo_step_core_dense(
+    encoded: torch.Tensor,  # (J, n, d) standardized features of the space
+    obs_mask: torch.Tensor,  # (J, n) bool configurations already tried
+    y: torch.Tensor,  # (J, n) observed costs, finite garbage where not observed
+    cand_mask: torch.Tensor,  # (J, n) bool current candidate pool
+    xi: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The full-extent BO step, 18 O(n³) factorizations a call:
+    (pick, max_ei, best), each (J,).  The baseline the packed layouts are
+    checked and timed against; neither engine runs it."""
+    x = encoded.to(torch.float32)
+    d2 = pairwise_sqdist(x)
+    pm, best, ls_sel, chol, alpha, y_mean, y_std = _select(
+        _masked_grid_factors(d2, y, obs_mask))
+    ei = ei_from_sqdist(
+        d2, pm, alpha, chol, ls_sel, y_mean, y_std, best, cand_mask & ~obs_mask, xi,
+    )
+    return torch.argmax(ei, -1), torch.amax(ei, -1), best
+
+
 class FleetState(NamedTuple):
     """Search state with a leading job axis J, resident on one device.
 
@@ -255,7 +383,7 @@ _FIELD_DTYPES = {
 
 def fleet_step(
     state: FleetState,
-    geom: torch.Tensor,  # (J, n, d) f32 encoding
+    geom: torch.Tensor,  # (J, n, d) f32 encoding [feature, fused] | (J, n, n) d2 [gather]
     costs: torch.Tensor,  # (J, n) f32 full observation table
     prio_mask: torch.Tensor,  # (J, n) bool priority pool (phase 0)
     rem_mask: torch.Tensor,  # (J, n) bool remaining pool (phase 1)
@@ -276,6 +404,10 @@ def fleet_step(
     resident on its device across a whole search with no per-step copies
     (the role JAX buffer donation plays in the reference).  Nothing here
     waits for the device.
+
+    ``layout`` "feature" and "fused" take the (J,n,d) encoding as ``geom``
+    and keep the packed feature buffer; "gather" takes the (J,n,n) distance
+    tensor and leaves ``state.feats`` untouched.
     """
     _check_layout(layout)
     obs, tried, py, feats, t = state.obs, state.tried, state.py, state.feats, state.t
@@ -296,8 +428,11 @@ def fleet_step(
     )
 
     is_init = t < init_count
-    step = bo_step_core if layout == "feature" else bo_step_core_fused
-    bo_pick, max_ei, best = step(geom, feats, tried, py, t, obs, cand, xi)
+    if layout == "gather":
+        bo_pick, max_ei, best = bo_step_core_gather(geom, tried, py, t, obs, cand, xi)
+    else:
+        step = bo_step_core if layout == "feature" else bo_step_core_fused
+        bo_pick, max_ei, best = step(geom, feats, tried, py, t, obs, cand, xi)
     scripted = init_picks[rows, t.clamp(0, init_picks.shape[1] - 1).long()]
     pick = torch.where(is_init, scripted, bo_pick.to(torch.int32))
 
@@ -314,7 +449,8 @@ def fleet_step(
     obs[rows, pick_l] = obs[rows, pick_l] | observe
     tried[rows, slot] = torch.where(observe, pick, tried[rows, slot])
     py[rows, slot] = torch.where(observe, costs[rows, pick_l], py[rows, slot])
-    feats[rows, slot] = torch.where(observe[:, None], geom[rows, pick_l], feats[rows, slot])
+    if layout != "gather":
+        feats[rows, slot] = torch.where(observe[:, None], geom[rows, pick_l], feats[rows, slot])
     # A job is done when its candidates ran out, its stop criterion halted
     # it, or its trial budget is exhausted.
     done = state.done | (live & (~has_cand | halt)) | ~budget_left
@@ -335,8 +471,13 @@ class SequentialProbe:
     observed cost) and (pick, max_ei, best) come back in one transfer.
 
     ``capacity`` is the trial budget (`bayesopt.trial_budget`), the static
-    extent B of every (B,B) factorization.  ``layout`` is "feature" or
-    "fused" (the CUDA kernel on the card).
+    extent B of every (B,B) factorization.  ``layout`` is "feature", "fused"
+    (the CUDA kernel on the card) or "gather" (the (n,n) distance tensor
+    held on the device for the search's lifetime).
+
+    The reference donates a batch-extent-2 state to a jitted probe
+    (`_probe_step`); here the J = 1 state is updated in place, which needs
+    neither.
     """
 
     def __init__(self, encoded, capacity: int, xi: float = 0.0,
@@ -350,7 +491,10 @@ class SequentialProbe:
         self._layout = layout
         self._enc = enc
         dev = self._dev
-        self._geom = torch.from_numpy(np.ascontiguousarray(enc)).to(dev)[None]
+        if layout == "gather":
+            self._geom = precompute_d2(enc, dev)[None]
+        else:
+            self._geom = torch.from_numpy(np.ascontiguousarray(enc)).to(dev)[None]
         # Observation values are irrelevant inside the probe: the real cost
         # arrives with the next call and is patched into the packed buffer.
         self._costs = torch.zeros((1, self._n), dtype=torch.float32, device=dev)

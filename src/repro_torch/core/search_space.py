@@ -13,10 +13,14 @@ metadata (node count, prices, mesh/remat details for the TPU tuner, ...).
   FLAT    → the 10–20 % of configs with the lowest total memory.
   UNCLEAR → no split (priority group = whole space → plain CherryPick).
 
-This is the host-side numpy copy of the reference module
-(`repro/core/search_space.py`), bit-equal to it.  The reference's
-on-device split, ``split_masks_device``, serves the fleet session only and
-is not part of this package yet.
+``split_search_space`` is the host-side numpy copy of the reference module
+(`repro/core/search_space.py`), bit-equal to it.  ``split_masks_device`` is
+the same rule computed on a torch device over the space's static
+per-config arrays, returning the (n,) priority mask directly: one
+vectorized comparison and a stable sort instead of a Python loop over
+10⁴-10⁵ configurations.  It runs in float64, so every comparison and the
+stable order are those of the host rule, and the masks equal its lists
+exactly; the fleet session (`repro_torch.fleet.session`) relies on that.
 """
 
 from __future__ import annotations
@@ -25,12 +29,15 @@ import dataclasses
 from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.memory_model import MemoryCategory, MemoryModel
+from repro_torch.device import DeviceLike, resolve_device
 
 __all__ = [
     "Configuration",
     "SearchSpace",
+    "split_masks_device",
     "split_search_space",
 ]
 
@@ -134,3 +141,72 @@ def split_search_space(
         return all_idx, []
     rest = sorted(set(all_idx) - set(prio))
     return prio, rest
+
+
+
+def _flat_prio_mask(mems: torch.Tensor, k: int) -> torch.Tensor:
+    """FLAT rule: True at the k lowest-memory configs (stable ties)."""
+    order = torch.argsort(mems, stable=True)
+    mask = torch.zeros(mems.shape[0], dtype=torch.bool, device=mems.device)
+    mask[order[:k]] = True
+    return mask
+
+
+def _linear_prio_mask(
+    mems: torch.Tensor, nodes: torch.Tensor, scaled_req: float, overhead: float, k: int
+) -> torch.Tensor:
+    """LINEAR rule: memory >= requirement, else the very-high/very-low extremes.
+
+    ``scaled_req`` is ``req_base * (1.0 + leeway)``, rounded on the host as
+    the host rule rounds it; the per-node term is a separate multiply and
+    add (a fused multiply-add would round once and break the equality with
+    `split_search_space`).
+    """
+    requirement = nodes * overhead
+    requirement = requirement + scaled_req
+    qualify = mems >= requirement
+    order = torch.argsort(mems, stable=True)
+    extremes = torch.zeros_like(qualify)
+    extremes[order[:k]] = True
+    extremes[order[-k:]] = True
+    return torch.where(qualify.any(), qualify, extremes)
+
+
+def split_masks_device(
+    space: SearchSpace,
+    model: MemoryModel,
+    input_size: float,
+    *,
+    per_node_overhead: float = 0.0,
+    leeway: float = 0.10,
+    flat_fraction: float = 1.0 / 7.0,
+    extreme_fraction: float = 0.15,
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """The §III-D priority split on ``device``: the (n,) bool priority mask.
+
+    Equal to `split_search_space`'s lists by construction: the requirement
+    and the comparison run elementwise in float64, the FLAT and extremes
+    selections use a stable argsort (the permutation of
+    ``np.argsort(kind="stable")``), and the group sizes ``k`` are rounded on
+    the host with the host rule's expressions.  The remaining mask is always
+    the complement (``~prio``), the all-qualify LINEAR case included: the
+    complement of an all-True mask is the host rule's empty remainder.
+    UNCLEAR returns all-True.
+    """
+    dev = resolve_device(device)
+    n = len(space)
+    if model.category is MemoryCategory.UNCLEAR:
+        return torch.ones(n, dtype=torch.bool, device=dev)
+    mems = torch.from_numpy(space.memories()).to(dev)
+    if model.category is MemoryCategory.FLAT:
+        k = max(1, int(round(flat_fraction * n)))
+        return _flat_prio_mask(mems, min(k, n))
+    k = max(1, int(round(extreme_fraction * n)))
+    return _linear_prio_mask(
+        mems,
+        torch.from_numpy(space.num_nodes()).to(dev),
+        float(model.estimate(input_size)) * (1.0 + float(leeway)),
+        float(per_node_overhead),
+        min(k, n),
+    )

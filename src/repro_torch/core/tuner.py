@@ -1,21 +1,19 @@
 """End-to-end Ruya tuner: profile → categorize → split → two-phase BO search.
 
-Port of `repro/core/tuner.py`, live-trial (``cost_fn``) path.  An
-environment supplies a profiling run function ``run(sample_size) ->
-(runtime_s, peak_mem_bytes)``, the full input size, the discrete search
-space and a trial cost function ``cost_fn(config_index) -> float``; the
-search runs on ``device`` (the card unless the caller passes
-``device="cpu"``).
-
-The reference's ``cost_table`` path replays recorded costs through its
-batched fleet engine; the port's fleet slice is still to come (ROADMAP,
-Queue 1, item 14), and until then that path raises `NotImplementedError`.
+Port of `repro/core/tuner.py`.  An environment supplies a profiling run
+function ``run(sample_size) -> (runtime_s, peak_mem_bytes)``, the full
+input size, the discrete search space, and either a trial cost function
+``cost_fn(config_index) -> float`` (live trials, the sequential engine's
+device-resident probe) or a recorded ``cost_table`` (replay through the
+fleet engine as a fleet of one, `repro_torch.fleet.driver.tune_fleet`).
+Either runs on ``device``: the card unless the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 
@@ -30,48 +28,7 @@ from repro_torch.core.profiler import ProfileResult, profile_job
 from repro_torch.core.search_space import SearchSpace, split_search_space
 from repro_torch.device import DeviceLike, resolve_device
 
-__all__ = ["RuyaReport", "canonical_objective", "run_ruya", "run_cherrypick"]
-
-_FLEET_ITEM = (
-    "the cost_table path runs on the fleet engine, which the port does not "
-    "have yet (ROADMAP, Queue 1, item 14: fleet engine and session)"
-)
-
-# A tuning objective is "runtime", "cost", or a weight mapping over both
-# (copy of the reference's `repro.fleet.session.canonical_objective`).
-Objective = Union[str, Tuple[Tuple[str, float], ...]]
-_OBJECTIVE_AXES = ("runtime", "cost")
-
-
-def canonical_objective(objective) -> Objective:
-    """Validate and canonicalize an objective spec (see `Objective`)."""
-    if isinstance(objective, str):
-        if objective not in _OBJECTIVE_AXES:
-            raise ValueError(
-                f"unknown objective {objective!r}; want one of "
-                f"{_OBJECTIVE_AXES} or a weight mapping over them"
-            )
-        return objective
-    if isinstance(objective, tuple):
-        objective = dict(objective)
-    if isinstance(objective, dict):
-        extra = set(objective) - set(_OBJECTIVE_AXES)
-        if extra or not objective:
-            raise ValueError(
-                f"objective weights must be over {_OBJECTIVE_AXES}, got "
-                f"{sorted(objective) if objective else 'no axes'}"
-            )
-        weights = {k: float(v) for k, v in objective.items()}
-        if min(weights.values()) < 0.0 or sum(weights.values()) <= 0.0:
-            raise ValueError(
-                f"objective weights must be >= 0 with a positive sum, "
-                f"got {weights}"
-            )
-        return tuple(sorted(weights.items()))
-    raise TypeError(
-        f"objective must be a string or a weight mapping, got "
-        f"{type(objective).__name__}"
-    )
+__all__ = ["RuyaReport", "run_ruya", "run_cherrypick"]
 
 
 @dataclasses.dataclass
@@ -103,17 +60,38 @@ def run_ruya(
     objective="runtime",
     device: DeviceLike = None,
 ) -> RuyaReport:
-    """The full Ruya pipeline over live trials (``cost_fn``).
+    """The full Ruya pipeline.
 
     ``profile_result`` can be injected to reuse an earlier profiling phase
     (the paper: profiling repeats only when the execution context changes).
-    A live ``cost_fn`` observes one scalar per trial, so the objective
-    must be "runtime".
+    Costs come from ``cost_fn`` (live trials, the sequential engine) or
+    from ``cost_table`` (replay on the fleet engine as a fleet of one).
+    ``objective`` routes the replay's scoring ("runtime", "cost" or a
+    weight mapping, `repro_torch.fleet.session.objective_table`); a live
+    ``cost_fn`` observes one scalar per trial, so it takes "runtime" only.
     """
     if (cost_fn is None) == (cost_table is None):
         raise ValueError("provide exactly one of cost_fn / cost_table")
     if cost_table is not None:
-        raise NotImplementedError(_FLEET_ITEM)
+        from repro_torch.fleet.driver import FleetJob, tune_fleet
+
+        job = FleetJob(
+            name="job",
+            space=space,
+            cost_table=np.asarray(cost_table, np.float64),
+            full_input_size=full_input_size,
+            profile_run=profile_run,
+            profile_result=profile_result,
+            per_node_overhead=per_node_overhead,
+            leeway=leeway,
+            flat_fraction=flat_fraction,
+        )
+        return tune_fleet(
+            [job], [rng], settings=settings, to_exhaustion=to_exhaustion,
+            objective=objective, device=device,
+        )[0]
+    from repro_torch.fleet.session import canonical_objective
+
     device = resolve_device(device)  # refuse before profiling without a card
     if canonical_objective(objective) != "runtime":
         raise ValueError(
@@ -150,11 +128,21 @@ def run_cherrypick(
     to_exhaustion: bool = False,
     device: DeviceLike = None,
 ) -> SearchTrace:
-    """The baseline, for side-by-side evaluation (paper §IV-C)."""
+    """The baseline, for side-by-side evaluation (paper §IV-C), over a live
+    ``cost_fn`` or a recorded ``cost_table`` (the fleet engine, as in
+    `run_ruya`)."""
     if (cost_fn is None) == (cost_table is None):
         raise ValueError("provide exactly one of cost_fn / cost_table")
     if cost_table is not None:
-        raise NotImplementedError(_FLEET_ITEM)
+        from repro_torch.fleet.driver import FleetJob, tune_fleet
+
+        job = FleetJob(
+            name="job", space=space, cost_table=np.asarray(cost_table, np.float64)
+        )
+        return tune_fleet(
+            [job], [rng], mode="cherrypick", settings=settings,
+            to_exhaustion=to_exhaustion, device=device,
+        )[0].trace
     return cherrypick_search(
         space, cost_fn, rng, settings=settings, to_exhaustion=to_exhaustion,
         device=device,

@@ -153,6 +153,144 @@ def test_fused_search_past_128_configurations_on_the_card(dev):
     assert full >= 1, "no card trace matched the CPU's in full"
 
 
+def job_axis_case(dev, n, d, cap, ks, seed=30):
+    """Tail inputs for len(ks) packed states stacked on the job axis, row j
+    with ks[j] observations (rows at different t, a full buffer, an
+    all-masked pool in the last row)."""
+    rows = [case(dev, seed + j, n, d, k, cap) for j, k in enumerate(ks)]
+    out = [torch.cat([r[i] for r in rows]).contiguous() for i in range(10)]
+    out[1][-1] = False  # the last row's candidate pool is empty
+    return out
+
+
+@pytest.mark.parametrize("n,d,cap,ks", [
+    (69, 4, 69, [3, 10, 40, 69, 5, 68, 20, 7]),  # the paper grid, the blocked route
+    (5000, 6, 24, [3, 4, 8, 12, 16, 20, 24, 6]),  # the register route, several tiles
+    (700, 5, 10, [3, 9, 10, 5, 7]),  # J = 5
+])
+def test_kernel_job_axis(dev, n, d, cap, ks):
+    """K1 at J > 1: every row against the plain version of that row alone,
+    one launch for the whole batch, and a second call equal to the first
+    (the per-device finished-block counts are left at 0 by each call)."""
+    args = job_axis_case(dev, n, d, cap, ks)
+    before = kernel.ei_argmax_cuda.launches
+    k_idx, k_val = ei_argmax(*args)
+    torch.cuda.synchronize()
+    assert kernel.ei_argmax_cuda.launches == before + 1
+    again = ei_argmax(*args)
+    assert torch.equal(again[0], k_idx) and torch.equal(again[1], k_val)
+    for j in range(len(ks)):
+        row = [a[j:j + 1] for a in args]
+        p_idx, p_val = ei_argmax_plain(*row)
+        assert_close(float(p_val[0]), float(k_val[j]), rtol=EI_RTOL, atol=EI_ATOL,
+                     what=f"row {j} max EI")
+        full = ei_from_sqdist(pairwise_sqdist(row[2], row[0]), *row[3:], row[1])
+        assert pick_agrees(int(p_idx[0]), int(k_idx[j]), full[0].cpu().numpy()), j
+    assert int(k_idx[-1]) == 0 and float(k_val[-1]) == float("-inf")
+
+
+def fleet_jobs(J, n=300, d=5):
+    from repro_torch.core.search_space import Configuration, SearchSpace
+
+    rng = np.random.default_rng(n)
+    feats = rng.normal(size=(n, d))
+    space = SearchSpace([Configuration(name=f"s{i}", features=tuple(map(float, f)),
+                                       total_memory=float(i) * 2.0**30)
+                         for i, f in enumerate(feats)])
+    z = feats @ rng.normal(size=d)
+    table = 1.0 + ((z - z.mean()) / z.std() - 0.7) ** 2 + 0.05 * rng.random(n)
+    pools = [(list(range(n)), []), (list(range(40)), list(range(40, n)))]
+    return space, table, [pools[j % 2] for j in range(J)]
+
+
+@pytest.mark.parametrize("J", [5, 9])
+def test_fused_fleet_on_the_card_matches_the_cpu(dev, J, monkeypatch):
+    """A lockstep fleet of J jobs (CherryPick and two-phase Ruya pools over
+    300 configurations, max_iters = 16, the stop criterion armed) in the
+    fused layout through a `TuningSession` on the card: K1 launches once
+    per chunk step (J = 9 is two chunks), and each trace is held to the same
+    fleet on the CPU (K1's plain version) under the CPU's EI; at least J - 1
+    match in full."""
+    from repro_torch.core.bayesopt import BOSettings, trial_budget
+    from repro_torch.fleet import FleetJob, TuningSession, batched_search
+    from repro_torch.testing import compare_traces, port_ei_at
+
+    from repro_torch.fleet import session as session_mod
+
+    space, table, pools = fleet_jobs(J)
+    st = BOSettings(max_iters=16)
+    session = TuningSession(settings=st, layout="fused", device=dev)
+    hs = [session.submit(FleetJob(name=f"j{j}", space=space, cost_table=table), seed=j,
+                         priority=p, remaining=r) for j, (p, r) in enumerate(pools)]
+    update, chunk_steps = session_mod._fleet_update, [0]
+
+    def counted(*args, **kw):  # one call per chunk step
+        chunk_steps[0] += 1
+        return update(*args, **kw)
+
+    monkeypatch.setattr(session_mod, "_fleet_update", counted)
+    kernel.ei_argmax_cuda.launches = 0
+    session.step()
+    torch.cuda.synchronize()
+    assert chunk_steps[0] == kernel.ei_argmax_cuda.launches == len(session._chunks) >= 1
+    session.drain()
+    assert kernel.ei_argmax_cuda.launches == chunk_steps[0] > 16
+    cpu = batched_search(space, [table] * J, [np.random.default_rng(j) for j in range(J)],
+                         priority=[p for p, _ in pools], remaining=[r for _, r in pools],
+                         settings=st, layout="fused", device="cpu")
+    full = 0
+    for j, (h, (p, r)) in enumerate(zip(hs, pools)):
+        ref = cpu.job_trace(j)
+        plist = [p, r] if r else [p]
+        cap = trial_budget(len(p), len(r), st)
+        full += compare_traces(ref, h.outcome().trace(),
+                               port_ei_at(space.encoded(), plist, cap, ref, "cpu"),
+                               first_bo_step=3).full
+    assert full >= J - 1, f"only {full} of {J} card traces matched the CPU's in full"
+
+
+def test_device_split_on_the_card(dev):
+    """`split_masks_device` on the card equals the host split's lists in
+    every branch, at 131072 configurations and for the paper jobs."""
+    from repro_torch.cluster.simulator import ClusterSimulator
+    from repro_torch.cluster.workloads import JOBS
+    from repro_torch.core.memory_model import MemoryCategory, MemoryModel
+    from repro_torch.core.profiler import profile_job
+    from repro_torch.core.search_space import (
+        Configuration, SearchSpace, split_masks_device, split_search_space)
+
+    def check(space, model, size, **kw):
+        prio, rest = split_search_space(space, model, size, **kw)
+        mask = split_masks_device(space, model, size, device=dev, **kw).cpu().numpy()
+        assert np.flatnonzero(mask).tolist() == prio
+        assert np.flatnonzero(~mask).tolist() == rest
+        return len(prio)
+
+    for key in sorted(JOBS):
+        sim = ClusterSimulator.for_job(key)
+        size = sim.job.input_gb * 2.0**30
+        check(sim.space, profile_job(sim.profile_run_fn(), size).model, size,
+              per_node_overhead=0.5 * 2.0**30)
+    n = 131072
+    rng = np.random.default_rng(5)
+    mems = rng.choice(rng.uniform(1, 2048, size=4000), size=n) * 2.0**30  # many ties
+    nodes = rng.integers(1, 65, size=n)
+    space = SearchSpace([Configuration(name=f"c{i}", features=(float(i),),
+                                       total_memory=float(m), num_nodes=int(k))
+                         for i, (m, k) in enumerate(zip(mems, nodes))])
+
+    def model(cat, slope=0.0, intercept=2.0**30):
+        return MemoryModel(category=MemoryCategory(cat), slope=slope, intercept=intercept,
+                           r2=1.0, sizes=(1.0,), readings=(4.0 * 2.0**30,))
+
+    kw = dict(per_node_overhead=0.5 * 2.0**30)
+    assert check(space, model("flat"), 1e12, **kw) == round(n / 7)
+    assert 0 < check(space, model("linear", 3.0), 100 * 2.0**30, **kw) < n
+    assert check(space, model("linear", 1e3), 100 * 2.0**30, **kw) == 2 * round(0.15 * n)
+    assert check(space, model("linear", 1e-9, 0.0), 1.0) == n
+    assert check(space, model("unclear"), 1.0, **kw) == n
+
+
 # ---------------------------------------------------------------- flash attention (K2)
 
 FA_SHAPES = [  # tests/test_kernels.py's sweep: (b, t, h, kv, d, causal)

@@ -2,9 +2,14 @@
 
 Seeded reference `FleetState`s are carried into the port with
 `FleetState.from_numpy` (each field through `np.asarray`); one BO step of
-each layout, a run of `fleet_step` calls, and the standalone `bo_step`
-must agree with the reference's: picks exactly or as a certified EI tie
+each layout (feature, fused, gather, and the dense baseline), a run of
+`fleet_step` calls, and the standalone `bo_step` must agree with the
+reference's: picks exactly or as a certified EI tie
 (`testing.pick_agrees`), floats at the tolerances of `repro_torch.testing`.
+The gather layout's (n,n) tensor and blocks agree with the reference's to
+FLOAT_RTOL/FLOAT_ATOL, and the port's feature and gather layouts agree
+with each other to EI_RTOL/EI_ATOL (their distance blocks come from two
+matmul shapes, (B,d)·(d,n) and (n,d)·(d,n), which may round differently).
 A forced Cholesky failure in `_packed_head` must select the same grid
 point as the reference; when every factorization fails, both of the
 port's layouts must pick what the reference's feature layout picks.
@@ -257,7 +262,7 @@ def test_fleet_step_run_matches_reference():
     assert p.t.item() == 0  # from_numpy copies: the reference state was not touched
 
 
-@pytest.mark.parametrize("layout", ["feature", "fused"])
+@pytest.mark.parametrize("layout", ["feature", "fused", "gather"])
 @pytest.mark.parametrize("seed", range(3))
 def test_standalone_bo_step(layout, seed):
     state, enc, costs, cand = ref_state(30 + seed, 90, 4, 6, 9)
@@ -273,4 +278,120 @@ def test_standalone_bo_step(layout, seed):
 
 def test_unknown_layout_raises():
     with pytest.raises(ValueError):
-        port.SequentialProbe(np.zeros((4, 2)), 3, layout="gather", device="cpu")
+        port.SequentialProbe(np.zeros((4, 2)), 3, layout="sparse", device="cpu")
+
+
+_REF_GATHER = jax.jit(ref.bo_step_core_gather)
+_REF_DENSE = jax.jit(ref.bo_step_core_dense)
+
+
+@pytest.mark.parametrize("seed,n,d,k,cap", CASES)
+def test_gather_tensor_and_blocks(seed, n, d, k, cap):
+    state, enc, _, _ = ref_state(seed, n, d, k, cap)
+    r_d2 = np.array(ref.precompute_d2(enc))  # writable, for torch.from_numpy
+    g_d2 = port.precompute_d2(enc, device="cpu")
+    assert g_d2.shape == (n, n) and g_d2.dtype == torch.float32
+    assert_close(r_d2, g_d2.numpy(), what="precompute_d2")
+    r_bb, r_bn = ref.gather_sqdist_blocks(jnp.asarray(r_d2), state.tried)
+    # The same tensor on both sides: the gathers are exact.
+    g_bb, g_bn = port.gather_sqdist_blocks(torch.from_numpy(r_d2)[None], to_port(state).tried)
+    assert np.array_equal(np.asarray(r_bb), g_bb[0].numpy())
+    assert np.array_equal(np.asarray(r_bn), g_bn[0].numpy())
+    # Against the feature layout's blocks, within the float tolerance.
+    p = to_port(state)
+    f_bb, f_bn = port.packed_sqdist_blocks(p.feats, torch.from_numpy(enc)[None], p.tried)
+    pm = np.arange(cap) < k  # padded slots gather different garbage
+    assert_close(f_bb[0].numpy()[np.ix_(pm, pm)], g_bb[0].numpy()[np.ix_(pm, pm)])
+    assert_close(f_bn[0].numpy()[pm], g_bn[0].numpy()[pm])
+
+
+@pytest.mark.parametrize("seed,n,d,k,cap", CASES)
+def test_bo_step_core_gather_per_call(seed, n, d, k, cap):
+    state, enc, _, cand = ref_state(seed, n, d, k, cap)
+    r_d2 = ref.precompute_d2(enc)
+    r_pick, r_ei, r_best = _REF_GATHER(r_d2, state.tried, state.py, state.t, state.obs,
+                                       jnp.asarray(cand))
+    p = to_port(state)
+    g_pick, g_ei, g_best = port.bo_step_core_gather(
+        port.precompute_d2(enc, device="cpu")[None], p.tried, p.py, p.t, p.obs,
+        torch.from_numpy(cand)[None])
+    ei = ref_ei_vector(state, enc, cand)
+    assert pick_agrees(int(r_pick), int(g_pick[0]), ei)
+    assert_close(float(r_ei), float(g_ei[0]), rtol=EI_RTOL, atol=EI_ATOL, what="max EI")
+    assert float(r_best) == float(g_best[0])
+    # The port's feature layout on the same state, within the EI tolerance.
+    f_pick, f_ei, f_best = port.bo_step_core(torch.from_numpy(enc)[None], p.feats, p.tried,
+                                             p.py, p.t, p.obs, torch.from_numpy(cand)[None])
+    assert pick_agrees(int(f_pick[0]), int(g_pick[0]), ei)
+    assert_close(float(f_ei[0]), float(g_ei[0]), rtol=EI_RTOL, atol=EI_ATOL)
+    assert float(f_best[0]) == float(g_best[0])
+
+
+@pytest.mark.parametrize("seed,n,d,k", [(0, 40, 3, 5), (1, 69, 4, 12), (2, 50, 1, 3),
+                                        (3, 64, 6, 30)])
+def test_bo_step_core_dense(seed, n, d, k):
+    """The full-extent baseline, one job and a batch of two, against the
+    reference's dense step: picks tie under the reference's EI, max EI
+    within EI_RTOL/EI_ATOL, best exact."""
+    state, enc, costs, cand = ref_state(seed, n, d, k, k)
+    obs = np.asarray(state.obs)
+    y = np.where(obs, costs, 7.0).astype(np.float32)  # finite garbage where unobserved
+    r_pick, r_ei, r_best = _REF_DENSE(jnp.asarray(enc), jnp.asarray(obs), jnp.asarray(y),
+                                      jnp.asarray(cand))
+    T = lambda a: torch.from_numpy(np.stack([a, a]))  # noqa: E731
+    g_pick, g_ei, g_best = port.bo_step_core_dense(T(enc), T(obs), T(y), T(cand))
+    ei = ref_ei_vector(state, enc, cand)
+    for j in range(2):
+        assert pick_agrees(int(r_pick), int(g_pick[j]), ei)
+        assert_close(float(r_ei), float(g_ei[j]), rtol=EI_RTOL, atol=EI_ATOL, what="max EI")
+        assert float(r_best) == float(g_best[j])
+
+
+@pytest.mark.parametrize("ls,noise", [(0.5, 1e-2), (1.0, 1e-1), (2.0, 1e-2)])
+def test_masked_posterior(ls, noise):
+    rng = np.random.default_rng(11)
+    n, d = 30, 3
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    obs = rng.random(n) < 0.4
+    y_n = np.where(obs, rng.normal(size=n), 0.0).astype(np.float32)
+    r = ref._masked_posterior(jnp.asarray(x), jnp.asarray(obs), jnp.asarray(y_n),
+                              jnp.asarray(ls, jnp.float32), jnp.asarray(noise, jnp.float32))
+    g = port._masked_posterior(torch.from_numpy(x), torch.from_numpy(obs), torch.from_numpy(y_n),
+                               torch.tensor(ls), torch.tensor(noise))
+    for what, a, b in zip(("lml", "mean", "var"), r, g):
+        assert_close(np.asarray(a), b.numpy(), what=what)
+
+
+def test_gather_fleet_step_run_matches_reference():
+    """`test_fleet_step_run_matches_reference` in the gather layout: the
+    (n,n) tensor as geometry, and the feature buffer left untouched."""
+    n, d, cap = 60, 3, 12
+    state, enc, costs, _ = ref_state(7, n, d, 0, cap)
+    prio = np.zeros(n, bool)
+    prio[:15] = True
+    args = dict(costs=costs, prio_mask=prio, rem_mask=~prio,
+                init_picks=np.array([3, 9, 1], np.int32), init_count=np.int32(3),
+                max_trials=np.int32(cap), min_obs=np.int32(4),
+                ei_stop_rel=np.float32(0.10), to_exhaustion=np.bool_(True))
+    ref_args = {k: jnp.asarray(v) for k, v in args.items()}
+    port_args = {k: torch.from_numpy(np.array(v))[None] for k, v in args.items()}
+    rs, ps = state, to_port(state)
+    r_d2, g_d2 = ref.precompute_d2(enc), port.precompute_d2(enc, device="cpu")[None]
+    feats0 = ps.feats.clone()
+    matched = 0
+    for step in range(10):
+        ei = ref_ei_vector(rs, enc, prio if bool(np.any(prio & ~np.asarray(rs.obs))) else ~prio)
+        rs = _REF_FLEET_STEP(rs, geom=r_d2, layout="gather", **ref_args)
+        port.fleet_step(ps, geom=g_d2, layout="gather", **port_args)
+        got = ps.to_numpy()
+        r_pick = int(np.asarray(rs.tried)[step])
+        g_pick = int(got["tried"][0, step])
+        if r_pick != g_pick:  # a certified tie ends the comparison
+            assert step >= 3 and pick_agrees(r_pick, g_pick, ei), step
+            break
+        matched += 1
+        for name in ("obs", "tried", "py", "t", "stop", "pb", "done", "last_best"):
+            assert np.array_equal(got[name][0], np.asarray(getattr(rs, name))), (name, step)
+        assert_close(float(rs.last_ei), float(got["last_ei"][0]), rtol=EI_RTOL, atol=EI_ATOL)
+    assert matched >= 6
+    assert torch.equal(ps.feats, feats0)

@@ -71,11 +71,17 @@ def test_scans_cover_every_subpackage():
     """Both scans walk the whole package: each subpackage's modules are in them."""
     mods = set(_modules())
     files = {str(p.relative_to(ROOT)) for p in _port_files()}
-    for sub in ("core", "cluster", "kernels.ei_argmax", "kernels.flash_attention",
+    for sub in ("core", "cluster", "fleet", "kernels.ei_argmax", "kernels.flash_attention",
                 "kernels.ssd", "kernels.rmsnorm", "models", "configs", "data", "runtime",
                 "launch", "optim", "parallel", "checkpoint"):
         assert any(m.startswith(f"repro_torch.{sub}.") for m in mods), sub
         assert any(f.startswith(f"src/repro_torch/{sub.replace('.', '/')}/") for f in files), sub
+
+
+def profiled_model(sim):
+    from repro_torch.core.profiler import profile_job
+
+    return profile_job(sim.profile_run_fn(), sim.job.input_gb * 1024.0**3).model
 
 
 @pytest.fixture
@@ -85,10 +91,12 @@ def no_card(monkeypatch):
 
 def test_entry_points_raise_without_a_card(no_card):
     from repro_torch.cluster.simulator import ClusterSimulator
-    from repro_torch.core import bayesopt, fast_bo, tuner
+    from repro_torch.core import bayesopt, fast_bo, search_space, tuner
     from repro_torch.device import resolve_device
+    from repro_torch.fleet import TuningSession, batched_search, cluster_fleet, tune_fleet
 
     sim = ClusterSimulator.for_job("kmeans/spark/bigdata")
+    jobs = cluster_fleet(["kmeans/spark/bigdata"])
     calls = []
 
     def cost_fn(i):
@@ -109,6 +117,16 @@ def test_entry_points_raise_without_a_card(no_card):
                                profile_run=sim.profile_run_fn(),
                                full_input_size=sim.job.input_gb * 1024.0**3),
         lambda: tuner.run_cherrypick(space=sim.space, cost_fn=cost_fn, rng=rng),
+        lambda: tuner.run_ruya(space=sim.space, cost_table=sim.normalized, rng=rng,
+                               profile_run=sim.profile_run_fn(),
+                               full_input_size=sim.job.input_gb * 1024.0**3),
+        lambda: tuner.run_cherrypick(space=sim.space, cost_table=sim.normalized, rng=rng),
+        lambda: TuningSession(),
+        lambda: tune_fleet(jobs, [rng]),
+        lambda: tune_fleet(jobs, [rng], engine="sequential"),
+        lambda: batched_search(sim.space, [sim.normalized], [rng]),
+        lambda: fast_bo.precompute_d2(sim.space.encoded()),
+        lambda: search_space.split_masks_device(sim.space, profiled_model(sim), 1.0),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             run()

@@ -154,16 +154,45 @@ def test_run_ruya_matches_reference_pipeline():
 
 
 def test_cost_table_path_waits_for_the_fleet_slice():
+    """The ``cost_table`` path, which waited for the fleet slice and now runs
+    as a fleet of one (`tune_fleet`, the session's device split): `run_ruya`
+    and `run_cherrypick` against the reference's sequential searches fed
+    the host split, two jobs x seeds 0-1, the paper's stop criterion; at
+    least 7 of the 8 traces match in full.  Malformed calls still raise."""
+    full = 0
+    for key in ("kmeans/spark/bigdata", "join/spark/huge"):
+        rs, ps, prof, prio, rest = job_setup(key)
+        n = len(rs.space)
+        kw = dict(full_input_size=rs.job.input_gb * GiB, per_node_overhead=0.5 * GiB)
+        for s in (0, 1):
+            g = port_tuner.run_ruya(profile_run=ps.profile_run_fn(), space=ps.space,
+                                    cost_table=ps.normalized, rng=np.random.default_rng(s),
+                                    device="cpu", **kw)
+            r = ref_bo.ruya_search(rs.space, rs.cost_fn(), np.random.default_rng(s), prio, rest)
+            assert (list(g.priority), list(g.remaining)) == (prio, rest)
+            assert g.memory_model.category.value == prof.model.category.value
+            cap = ref_bo.trial_budget(len(prio), len(rest), ref_bo.BOSettings())
+            full += hold(r, g.trace, [prio, rest] if rest else [prio], cap, rs.space,
+                         min(3, len(prio)), f"run_ruya cost_table {key} {s}").full
+            g = port_tuner.run_cherrypick(space=ps.space, cost_table=ps.normalized,
+                                          rng=np.random.default_rng(s), device="cpu")
+            r = ref_bo.cherrypick_search(rs.space, rs.cost_fn(), np.random.default_rng(s))
+            full += hold(r, g, [list(range(n))], n, rs.space, 3,
+                         f"run_cherrypick cost_table {key} {s}").full
+    assert full >= 7, f"only {full} of 8 traces matched in full"
     ps = PortSim.for_job("kmeans/spark/bigdata")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_tuner.run_ruya(space=ps.space, cost_table=ps.normalized,
+    with pytest.raises(ValueError):
+        port_tuner.run_ruya(space=ps.space, cost_table=ps.normalized, cost_fn=ps.cost_fn(),
                             rng=np.random.default_rng(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_tuner.run_cherrypick(space=ps.space, cost_table=ps.normalized,
-                                  rng=np.random.default_rng(0), device="cpu")
+    with pytest.raises(ValueError):
+        port_tuner.run_cherrypick(space=ps.space, rng=np.random.default_rng(0), device="cpu")
     with pytest.raises(ValueError):
         port_tuner.run_ruya(space=ps.space, cost_fn=ps.cost_fn(), rng=np.random.default_rng(0),
                             profile_result=None, objective="cost", device="cpu")
+    with pytest.raises(ValueError, match="pricing axes"):
+        port_tuner.run_ruya(space=ps.space, cost_table=ps.normalized, objective="cost",
+                            profile_run=ps.profile_run_fn(), rng=np.random.default_rng(0),
+                            device="cpu")
 
 
 def synth_space_table(n, d=5, seed=0):
