@@ -95,16 +95,35 @@ Phases, each reported on its own lines:
      warm-start stream (64 paper jobs in 8 waves, a `ProfileCache`), run
      twice and required identical; (f) `run_ruya` and `run_cherrypick` with
      ``cost_table=``; and the EI/argmax kernel at J = 8 rows, at the shapes
-     of (b) and (c), against its plain version and timed.
+     of (b) and (c), against its plain version and timed;
+ 15. the fleet's service and sharded bundles on the card, run right after
+     phase 14 and held to its catalog fleet, fused throughout: (a)
+     `resolve_shard_devices` ("auto" is None on one card, ``shard=2``
+     raises there); (b) the 64-job catalog fleet through sessions sharded
+     over the card named twice and four times (``devices=["cuda:0"] * S``),
+     every outcome equal to phase 14's, timed beside the unsharded session;
+     (c) the disturbed elastic fleet (a victim cancelled mid-flight, then a
+     live `reshard` from two shards to one, and from one to two), the
+     survivors held to the undisturbed run; (d) the catalog fleet through a
+     `TuningService` (its worker thread), every outcome equal to phase 14's,
+     jobs/s and the group's step ms, and a profiled run's device idle
+     share; (e) the catalog fleet and the 16 Table II jobs (CherryPick, the
+     catalog's budget) through one service, each outcome equal to its
+     lockstep counterpart, each group's step ms alone and with the other
+     live; (f) a `TuningDaemon` whose metrics snapshot (under ``--out``)
+     parses and counts every job; and the EI/argmax kernel at the shapes of
+     (c) and (e) against its plain version and timed.
 
-Phases 2-4 and 14 are the paths that run the EI/argmax kernel, phases 6 and
+Phases 2-4, 14 and 15 are the paths that run the EI/argmax kernel, phases 6 and
 12 the paths that run the tensor-core flash-attention kernel (the bfloat16
 models; the CUDA-core one must not run there), phase 5's float32 op the
 path of the CUDA-core one, phases 9, 10 and 13 the paths that run the SSD
 kernel, phase 11 the RMSNorm op.  Each sets the launch counts to 0 just
 before its run, reads them just after, and fails unless its kernel ran
 exactly once per fused BO step (phases 2-4), once per lockstep chunk step
-of a fused fleet (phase 14: one launch for all the chunk's rows), once
+of a fused fleet (phase 14: one launch for all the chunk's rows; phase 15:
+also once per shard of a bundle step, and as many times as the service's
+`metrics()` counts chunk steps), once
 per layer of each forward (phases 6 and 9), once per layer of the prefill
 and never in a decode step (phase 10), once per call of the op (phases 5
 and 11), or
@@ -851,31 +870,43 @@ FLEET_ROWS = 8  # a full lockstep chunk (`repro_torch.fleet.batched_engine._CHUN
 
 class ChunkSteps:
     """Counts the lockstep chunk updates fleet sessions dispatch (each runs
-    one BO step of every row of its chunk) by wrapping the session's update."""
+    one BO step of every row of its chunk, and a sharded bundle's step one
+    a shard) by wrapping the session's and the bundle's update; the
+    service's worker threads count under a lock."""
 
     def __enter__(self):
-        from repro_torch.fleet import session as mod
+        import threading
 
-        self.mod, self.update, self.n = mod, mod._fleet_update, 0
+        from repro_torch.fleet import session, sharding
 
-        def counted(*args, **kw):
-            self.n += 1
-            return self.update(*args, **kw)
+        self.mods = (session, sharding)
+        self.updates = [m._fleet_update for m in self.mods]
+        self.n, lock = 0, threading.Lock()
 
-        mod._fleet_update = counted
+        def wrap(update):
+            def counted(*args, **kw):
+                with lock:
+                    self.n += 1
+                return update(*args, **kw)
+
+            return counted
+
+        for m, update in zip(self.mods, self.updates):
+            m._fleet_update = wrap(update)
         return self
 
     def __exit__(self, *exc):
-        self.mod._fleet_update = self.update
+        for m, update in zip(self.mods, self.updates):
+            m._fleet_update = update
 
 
-def fleet_kernel_case(dev, shape, seed0):
-    """K1's inputs for one full chunk: FLEET_ROWS packed states on the job
-    axis, each from the port's own head."""
+def fleet_kernel_case(dev, shape, seed0, rows=FLEET_ROWS):
+    """K1's inputs for one chunk: ``rows`` packed states on the job axis,
+    each from the port's own head."""
     import torch
 
     n, d, cap, k = shape
-    rows = [kernel_case(dev, seed0 + j, n, d, cap, k) for j in range(FLEET_ROWS)]
+    rows = [kernel_case(dev, seed0 + j, n, d, cap, k) for j in range(rows)]
     return types.SimpleNamespace(**{
         f: torch.cat([getattr(r, f) for r in rows]).contiguous()
         for f in ("enc", "mask", "feats", "pm", "alpha", "chol", "ls", "y_mean", "y_std", "best")
@@ -890,7 +921,7 @@ def hold_fleet(ref, got, enc, pools, cap, dev, n_init):
     return cmp.full, cmp.detail
 
 
-def phase_fleet(dev, report, seq) -> dict:
+def phase_fleet(dev, report, seq, held) -> dict:
     import torch
 
     from repro_torch.cluster.simulator import ClusterSimulator
@@ -901,8 +932,6 @@ def phase_fleet(dev, report, seq) -> dict:
     from repro_torch.core.tuner import run_cherrypick, run_ruya
     from repro_torch.fleet import FleetJob, ProfileCache, TuningSession, cluster_fleet, tune_fleet
     from repro_torch.kernels.ei_argmax.kernel import ei_argmax_cuda
-    from repro_torch.kernels.ei_argmax.ops import ei_argmax, ei_argmax_plain
-    from repro_torch.testing import EI_ATOL, EI_RTOL, assert_close, pick_agrees
 
     print(f"phase 14: the fleet on the card (TuningSession, tune_fleet; lockstep chunks of up "
           f"to {FLEET_ROWS} jobs, K1 at J = chunk rows)")
@@ -1111,6 +1140,7 @@ def phase_fleet(dev, report, seq) -> dict:
                       "ms_per_chunk_step_events": med_ms, "ms_per_chunk_step_wall": med_wall,
                       "ms_per_job_step": med_wall / FLEET_ROWS, "peak_bytes": int(peak),
                       "full_matches": full_c, "profiled": profiled}
+    held.update(catalog=[o.as_dict() for o in outs], cat_space=cat_space, cat_table=cat_table)
     del session, handles, outs
     torch.cuda.empty_cache()
 
@@ -1205,40 +1235,53 @@ def phase_fleet(dev, report, seq) -> dict:
           f"run_cherrypick {'matches' if ok_c else det_c} (phase 2's feature traces)")
 
     # K1 at J = 8, the shapes of the fleet's two paths.
-    times = {}
-    for path, shape in FLEET_SHAPES.items():
-        n, d, cap, k = shape
-        c = fleet_kernel_case(dev, shape, 70)
-        before = ei_argmax_cuda.launches
-        k_idx, k_val = ei_argmax(*tail_args(c))
-        p_idx, p_val = ei_argmax_plain(*tail_args(c))
-        torch.cuda.synchronize()
-        if ei_argmax_cuda.launches != before + 1:
-            raise AssertionError(f"{path}: {ei_argmax_cuda.launches - before} launches for one call")
-        err = assert_close(p_val.cpu().numpy(), k_val.cpu().numpy(), rtol=EI_RTOL, atol=EI_ATOL,
-                           what=f"{path} max EI at J={FLEET_ROWS}")
-        for j in range(FLEET_ROWS):
-            row = types.SimpleNamespace(**{f: getattr(c, f)[j:j + 1] for f in vars(c)})
-            if not pick_agrees(int(p_idx[j]), int(k_idx[j]), full_ei(row)):
-                raise AssertionError(f"{path} row {j}: kernel {int(k_idx[j])} vs plain "
-                                     f"{int(p_idx[j])}, not a tie")
-        ms = cuda_time_ms(lambda: ei_argmax(*tail_args(c)))
-        plain_ms = cuda_time_ms(lambda: ei_argmax_plain(*tail_args(c)))
-        k_dev = graph_ms(lambda: ei_argmax(*tail_args(c)))
-        p_dev = graph_ms(lambda: ei_argmax_plain(*tail_args(c)), calls=2)
-        bound = ei_argmax_bound(int(c.mask.sum()), n, d, cap, FLEET_ROWS)
-        times[path] = dict(shape=f"J={FLEET_ROWS} n={n} d={d} B={cap}", ms=ms, plain_ms=plain_ms,
-                           device_ms=k_dev, plain_device_ms=p_dev, max_abs_err=err, **bound)
-        print(f"  K1 at J={FLEET_ROWS} n={n} d={d} B={cap}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms (events); device {k_dev:.4f} ms, plain {p_dev:.4f} ms "
-              f"(graph replay; {k_dev / FLEET_ROWS:.4f} ms a row); bound "
-              f"{bound['bound_ms']:.6f} ms ({bound['bound_by']}); |dEI| {err:.3e}")
+    times = {path: k1_at_rows(dev, path, shape) for path, shape in FLEET_SHAPES.items()}
     out["kernel_times"] = times
+    held["k1"] = times
     out["seconds"] = time.perf_counter() - t_phase
     print(f"  phase 14 wall time {out['seconds']:.1f} s")
     report["fleet"] = out
     return {"launches": {"fleet_table2": launches_b, "fleet_catalog": launches_c},
             "times": times}
+
+
+def k1_at_rows(dev, path: str, shape, rows: int = FLEET_ROWS) -> dict:
+    """K1 at ``rows`` rows of ``shape``: held against its plain version
+    (the max EI within the EI tolerance, each row's pick a tie of the
+    plain one), one launch a call, timed (events and graph replay) beside
+    the plain version, and its bound."""
+    import torch
+
+    from repro_torch.kernels.ei_argmax.kernel import ei_argmax_cuda
+    from repro_torch.kernels.ei_argmax.ops import ei_argmax, ei_argmax_plain
+    from repro_torch.testing import EI_ATOL, EI_RTOL, assert_close, pick_agrees
+
+    n, d, cap, k = shape
+    c = fleet_kernel_case(dev, shape, 70, rows)
+    before = ei_argmax_cuda.launches
+    k_idx, k_val = ei_argmax(*tail_args(c))
+    p_idx, p_val = ei_argmax_plain(*tail_args(c))
+    torch.cuda.synchronize()
+    if ei_argmax_cuda.launches != before + 1:
+        raise AssertionError(f"{path}: {ei_argmax_cuda.launches - before} launches for one call")
+    err = assert_close(p_val.cpu().numpy(), k_val.cpu().numpy(), rtol=EI_RTOL, atol=EI_ATOL,
+                       what=f"{path} max EI at J={rows}")
+    for j in range(rows):
+        row = types.SimpleNamespace(**{f: getattr(c, f)[j:j + 1] for f in vars(c)})
+        if not pick_agrees(int(p_idx[j]), int(k_idx[j]), full_ei(row)):
+            raise AssertionError(f"{path} row {j}: kernel {int(k_idx[j])} vs plain "
+                                 f"{int(p_idx[j])}, not a tie")
+    ms = cuda_time_ms(lambda: ei_argmax(*tail_args(c)))
+    plain_ms = cuda_time_ms(lambda: ei_argmax_plain(*tail_args(c)))
+    k_dev = graph_ms(lambda: ei_argmax(*tail_args(c)))
+    p_dev = graph_ms(lambda: ei_argmax_plain(*tail_args(c)), calls=2)
+    bound = ei_argmax_bound(int(c.mask.sum()), n, d, cap, rows)
+    print(f"  K1 at J={rows} n={n} d={d} B={cap}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms (events); device {k_dev:.4f} ms, plain {p_dev:.4f} ms "
+          f"(graph replay; {k_dev / rows:.4f} ms a row); bound "
+          f"{bound['bound_ms']:.6f} ms ({bound['bound_by']}); |dEI| {err:.3e}")
+    return dict(shape=f"J={rows} n={n} d={d} B={cap}", ms=ms, plain_ms=plain_ms,
+                device_ms=k_dev, plain_device_ms=p_dev, max_abs_err=err, **bound)
 
 
 def fleet_breakdown(session, steps: int, chunks: int) -> dict:
@@ -1253,6 +1296,356 @@ def fleet_breakdown(session, steps: int, chunks: int) -> dict:
     wall, busy_ms, kern_ms, _, _ = profiled_window(run, steps * chunks)
     return {"wall_ms": wall, "device_busy_ms": busy_ms, "kernel_ms": kern_ms,
             "idle_share": 1 - busy_ms / wall if busy_ms > 0 else None}
+
+
+# ---------------------------------------------------------------- phase 15
+#
+# Runs right after phase 14, whose catalog fleet it holds the sharded
+# sessions and the service to.  Fused layout throughout, so K1 is on every
+# path.
+
+SERVICE_SHARDS = (2, 4)  # the one card named S times: the bundle code at S shards
+TABLE2_SHAPE = (69, 4, CATALOG_B, CATALOG_B)  # K1 on (e)'s Table II group: n, d, B, k
+ELASTIC_SHAPE = (20, 1, 12, 12)  # K1 on (c)'s elastic fleet, at its chunks' J = 4
+FAULT_FIELDS = ("profile_attempts", "retry_backoff_s")  # reported, not traced
+
+
+def fleet_kw():
+    from repro_torch.core.bayesopt import BOSettings
+
+    return dict(settings=BOSettings(max_iters=CATALOG_B), mode="cherrypick", warm_start=False,
+                to_exhaustion=True, layout="fused")
+
+
+def lockstep_run(dev, jobs, **kw):
+    """``jobs`` ([(job, seed)]) submitted to a session and drained: (outcome
+    dicts, wall s of submit and drain, chunk steps, K1 launches)."""
+    import torch
+
+    from repro_torch.fleet import TuningSession
+    from repro_torch.kernels.ei_argmax.kernel import ei_argmax_cuda
+
+    session = TuningSession(device=dev, **fleet_kw(), **kw)
+    torch.cuda.synchronize()
+    ei_argmax_cuda.launches = 0
+    with ChunkSteps() as cs:
+        t0 = time.perf_counter()
+        hs = [session.submit(job, seed=s) for job, s in jobs]
+        session.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return [h.outcome().as_dict() for h in hs], wall, cs.n, ei_argmax_cuda.launches
+
+
+def service_run(dev, jobs, daemon_path=None):
+    """``jobs`` through a `TuningService` (or a `TuningDaemon` writing its
+    snapshots to ``daemon_path``), submitted while it is paused, so that it
+    admits each group whole and forms the lockstep session's chunks, then
+    drained by its worker threads: (outcome dicts, metrics, chunk steps, K1
+    launches)."""
+    import torch
+
+    from repro_torch.fleet import TuningService
+    from repro_torch.kernels.ei_argmax.kernel import ei_argmax_cuda
+    from repro_torch.runtime import TuningDaemon
+
+    torch.cuda.synchronize()
+    ei_argmax_cuda.launches = 0
+    with ChunkSteps() as cs:
+        if daemon_path is None:
+            svc = TuningService(device=dev, **fleet_kw())
+        else:
+            daemon = TuningDaemon(metrics_path=str(daemon_path), snapshot_every_s=0.2,
+                                  device=dev, **fleet_kw()).start()
+            svc = daemon.service
+        svc.pause()
+        hs = [svc.submit(job, seed=s) for job, s in jobs]
+        if daemon_path is None:
+            svc.drain()
+            svc.shutdown()
+        else:
+            daemon.stop(drain=True)
+        torch.cuda.synchronize()
+    return [h.outcome().as_dict() for h in hs], svc.metrics(), cs.n, ei_argmax_cuda.launches
+
+
+def group_n(key: str) -> int:
+    """The space size n of a `metrics()` group key, "((n, d), B)"."""
+    import ast
+
+    return ast.literal_eval(key)[0][0]
+
+
+def group_ms(metrics) -> dict:
+    """Each group's mean host ms a chunk step, by its space size n."""
+    return {f"n={group_n(k)}": g["mean_step_s"] * 1e3 for k, g in metrics["groups"].items()}
+
+
+def hold_same(what, want, got, dev=None, ties=None):
+    """Outcome dicts equal verbatim.  With ``ties`` ((BOSettings, the
+    space's encoding)), an outcome that differs is held by `compare_traces`
+    instead (a certified tie ends its comparison; anything else raises):
+    (verbatim, tie ends)."""
+    from repro_torch.core.bayesopt import trial_budget
+    from repro_torch.fleet import SearchOutcome
+
+    if len(want) != len(got):
+        raise AssertionError(f"{what}: {len(got)} outcomes, want {len(want)}")
+    same = tie_ends = 0
+    for a, b in zip(want, got):
+        if a == b:
+            same += 1
+            continue
+        if ties is None:
+            raise AssertionError(f"{what}: {b['name']} differs from its counterpart")
+        settings, enc = ties
+        ra, rb = SearchOutcome.from_dict(a), SearchOutcome.from_dict(b)
+        prio, rest = list(ra.priority), list(ra.remaining)
+        if (list(rb.priority), list(rb.remaining)) != (prio, rest):
+            raise AssertionError(f"{what}: {b['name']}'s split differs")
+        ok, detail = hold_fleet(ra.trace(), rb.trace(), enc, [prio, rest] if rest else [prio],
+                                trial_budget(len(prio), len(rest), settings), dev,
+                                sum(r.source == "init" for r in ra.records))
+        if ok:
+            raise AssertionError(f"{what}: {b['name']} differs with every pick equal")
+        tie_ends += 1
+        print(f"      {b['name']}: {detail}")
+    return same, tie_ends
+
+
+def elastic_jobs(faults: bool):
+    """`tests/golden/scenarios.py`'s elastic fleet: eight Ruya jobs of two
+    memory classes over a 20-configuration line, profiled through exact
+    linear run functions; with ``faults``, two transient profiling failures
+    on e0 and e3 (retried: the same profile)."""
+    from repro_torch.cluster.faults import FaultPlan
+    from repro_torch.core.search_space import Configuration, SearchSpace
+    from repro_torch.fleet import FleetJob
+
+    def job(name, idx):
+        slope = 0.8 if idx % 2 == 0 else 1.2
+        space = SearchSpace([Configuration(name=f"c{i}", features=(float(i),),
+                                           total_memory=float(i) * GiB) for i in range(20)])
+        return FleetJob(name=name, space=space,
+                        cost_table=np.array([1.0 + 0.05 * (i - 9) ** 2 for i in range(20)]),
+                        full_input_size=10e9,
+                        profile_run=lambda b, _s=slope: (b * 5e-7, _s * b + 1e9))
+
+    jobs = [job(f"e{s}", s) for s in range(8)]
+    if faults:
+        for s in (0, 3):
+            jobs[s].profile_run = FaultPlan(seed=s, transient_run_failures=2).wrap_run(
+                jobs[s].profile_run, jobs[s].name)
+    return jobs, job("victim", 0)
+
+
+def elastic_run(dev, devices=None, reshard_to=None):
+    """The elastic fleet undisturbed (``devices`` None and no reshard), or
+    disturbed: a victim cancelled after three steps, then a live `reshard`
+    to ``reshard_to`` (a device list or None).  (survivor dicts without the
+    fault-reporting fields, chunk steps, K1 launches)."""
+    import torch
+
+    from repro_torch.core.bayesopt import BOSettings
+    from repro_torch.fleet import TuningSession
+    from repro_torch.kernels.ei_argmax.kernel import ei_argmax_cuda
+
+    disturbed = devices is not None or reshard_to is not None
+    jobs, victim_job = elastic_jobs(disturbed)
+    session = TuningSession(settings=BOSettings(max_iters=12), warm_start=False, layout="fused",
+                            device=dev, devices=devices)
+    ei_argmax_cuda.launches = 0
+    with ChunkSteps() as cs:
+        hs = [session.submit(job, seed=s) for s, job in enumerate(jobs)]
+        if disturbed:
+            victim = session.submit(victim_job, seed=99)
+            for _ in range(3):
+                session.step()
+            if not victim.cancel():
+                raise AssertionError("the victim could not be cancelled mid-flight")
+            if session.reshard(devices=reshard_to) != 8:
+                raise AssertionError("reshard did not move the eight survivors")
+        session.drain()
+        torch.cuda.synchronize()
+    if disturbed and not (victim.status == "cancelled" and victim.outcome().records):
+        raise AssertionError(f"the victim ended {victim.status} with no trials")
+    outs = [{k: v for k, v in h.outcome().as_dict().items() if k not in FAULT_FIELDS}
+            for h in hs]
+    return outs, cs.n, ei_argmax_cuda.launches
+
+
+def phase_service(dev, report, held, out_dir) -> dict:
+    import torch
+
+    from repro_torch.core.bayesopt import BOSettings
+    from repro_torch.fleet import FleetJob, cluster_fleet, resolve_shard_devices
+
+    print("phase 15: the fleet's service and sharded bundles on the card (TuningService, "
+          "TuningDaemon, TuningSession(devices=...), reshard; fused)")
+    t_phase = time.perf_counter()
+    out = {}
+    # The device the bundles name S times (the CPU when rehearsing).
+    card = dev if dev.type == "cpu" else torch.device("cuda", torch.cuda.current_device())
+    launches = {}
+
+    # (a) Resolution: "auto" takes the visible cards; an int asks for that many.
+    count = torch.cuda.device_count()
+    auto = resolve_shard_devices("auto")
+    if auto != (None if count < 2 else tuple(torch.device("cuda", i) for i in range(count))):
+        raise AssertionError(f"resolve_shard_devices('auto') gave {auto} with {count} card(s)")
+    try:
+        two = resolve_shard_devices(2)
+    except ValueError as e:
+        two = None
+        if count >= 2:
+            raise
+        print(f"  (a) {count} card(s): 'auto' resolves to {auto}; shard=2 raises: {e}")
+    else:
+        if count < 2 or len(two) != 2:
+            raise AssertionError(f"shard=2 resolved to {two} with {count} card(s)")
+        print(f"  (a) {count} cards: 'auto' resolves to {len(auto)} devices; shard=2 to {two}")
+
+    # (b) The catalog fleet through sharded sessions, against phase 14's.
+    cat = FleetJob(name="catalog", space=held["cat_space"], cost_table=held["cat_table"])
+    cat_jobs = [(cat, s) for s in range(FLEET_JOBS)]
+    want_steps = (FLEET_JOBS // FLEET_ROWS) * (CATALOG_B + 1)
+    print(f"  (b) catalog fleet ({FLEET_JOBS} jobs, n={CATALOG_N}) through sessions sharded over "
+          f"the card named S times, in turns, held to phase 14's outcomes")
+    walls = {}
+    order = (1,) + SERVICE_SHARDS
+    for s in order + order[::-1]:
+        got, wall, steps, k1 = lockstep_run(dev, cat_jobs,
+                                            devices=None if s == 1 else [card] * s)
+        hold_same(f"S={s}", held["catalog"], got)
+        if k1 != steps or steps != want_steps:
+            raise AssertionError(f"S={s}: K1 launched {k1} times over {steps} shard steps, want "
+                                 f"{want_steps}")
+        walls.setdefault(s, []).append(wall)
+        if s > 1:
+            launches[f"sharded_catalog_s{s}"] = k1
+    sharded = {s: {"wall_s": w, "jobs_per_s": FLEET_JOBS / np.mean(w),
+                   "ms_per_chunk_step": np.mean(w) * 1e3 / want_steps} for s, w in walls.items()}
+    for s, r in sharded.items():
+        print(f"    S={s}: {FLEET_JOBS} outcomes equal, twice; {want_steps} "
+              f"{'chunk' if s == 1 else 'shard'} steps ({FLEET_JOBS // (FLEET_ROWS * s)} "
+              f"{'chunks' if s == 1 else f'bundles of {s} shards'} of {FLEET_ROWS} rows), K1 "
+              f"launches {want_steps} a run; submit and drain "
+              f"{' and '.join(f'{w:.3f}' for w in r['wall_s'])} s, "
+              f"{r['ms_per_chunk_step']:.3f} ms a chunk step, {r['jobs_per_s']:.2f} jobs/s"
+              + ("" if s == 1 else f", {r['jobs_per_s'] / sharded[1]['jobs_per_s']:.3f}x unsharded"))
+    out["sharded"] = sharded
+
+    # (c) The disturbed elastic fleet: a victim cancelled, then a live reshard.
+    want, _, _ = elastic_run(dev)
+    jobs, _ = elastic_jobs(False)
+    ties_c = {}
+    k1_c = 0
+    for name, devices, to in (("shard loss", [card] * 2, None), ("join", None, [card] * 2)):
+        got, steps, k1 = elastic_run(dev, devices, to)
+        if k1 != steps:
+            raise AssertionError(f"elastic {name}: K1 launched {k1} times over {steps} steps")
+        k1_c += k1
+        same, ties = hold_same(f"elastic {name}", want, got, dev,
+                               (BOSettings(max_iters=12), jobs[0].space.encoded()))
+        ties_c[name] = {"verbatim": same, "tie_ends": ties, "steps": steps}
+        print(f"  (c) elastic fleet, {name} after 3 steps ({'2 -> 1' if to is None else '1 -> 2'} "
+              f"shards), victim cancelled: {same} of 8 survivors equal the undisturbed run "
+              f"verbatim, {ties} end at a certified tie; {steps} steps, K1 launches {k1}")
+    launches["elastic"] = k1_c
+    out["elastic"] = ties_c
+
+    # (d) The catalog fleet through the service, twice.
+    rates, step_ms = [], []
+    for _ in range(2):
+        got, m, steps, k1 = service_run(dev, cat_jobs)
+        hold_same("service", held["catalog"], got)
+        counted = sum(g["steps"] for g in m["groups"].values())
+        if not k1 == steps == counted == want_steps:
+            raise AssertionError(f"service: K1 launched {k1} times, {steps} chunk updates, "
+                                 f"metrics count {counted} chunk steps, want {want_steps}")
+        rates.append(m["jobs_per_sec"])
+        step_ms.extend(group_ms(m).values())
+    launches["service_catalog"] = k1
+    lock_ms = report.get("fleet", {}).get("catalog", {}).get("ms_per_chunk_step_events")
+    svc_ms = float(np.mean(step_ms))
+    print(f"  (d) catalog fleet through TuningService, twice: {FLEET_JOBS} outcomes equal phase "
+          f"14's; {counted} chunk steps (metrics), K1 launches {k1} a run; "
+          f"{' and '.join(f'{r:.2f}' for r in rates)} jobs/s (lockstep "
+          f"{sharded[1]['jobs_per_s']:.2f}, {np.mean(rates) / sharded[1]['jobs_per_s']:.3f}x); "
+          f"group mean step {' and '.join(f'{x:.3f}' for x in step_ms)} ms (lockstep "
+          f"{sharded[1]['ms_per_chunk_step']:.3f} ms a chunk step in (b), submit and retirement "
+          f"included; phase 14 (c) {lock_ms:.3f} ms by events, steady steps)")
+    wall, busy, kern, _, _ = profiled_window(lambda: service_run(dev, cat_jobs), want_steps)
+    idle = 1 - busy / wall if busy > 0 else None
+    print(f"    profiled service run: wall {wall:.3f} ms a chunk step, device busy {busy:.4f} ms "
+          f"(idle share {'not measured: no device time traced' if idle is None else f'{idle:.3f}'}"
+          f"), K1 {kern:.4f} ms")
+    out["service"] = {"jobs_per_s": rates, "group_mean_step_ms": step_ms,
+                      "chunk_steps": counted, "launches": k1,
+                      "profiled": {"wall_ms": wall, "device_busy_ms": busy, "kernel_ms": kern,
+                                   "idle_share": idle}}
+
+    # (e) Two groups at once: the catalog fleet and the 16 Table II jobs.
+    t2_jobs = [(job, 0) for job in cluster_fleet(JOB_ORDER)]
+    want_t2, t2_wall, t2_steps, t2_k1 = lockstep_run(dev, t2_jobs)
+    if t2_k1 != t2_steps:
+        raise AssertionError(f"Table II lockstep: K1 launched {t2_k1} times over {t2_steps} steps")
+    got_t2, m_t2, steps, k1 = service_run(dev, t2_jobs)
+    hold_same("Table II service", want_t2, got_t2)
+    got, m2, steps2, k1_2 = service_run(dev, cat_jobs + t2_jobs)
+    hold_same("two groups, catalog", held["catalog"], got[:FLEET_JOBS])
+    hold_same("two groups, Table II", want_t2, got[FLEET_JOBS:])
+    by_group = {k: g["steps"] for k, g in m2["groups"].items()}
+    if not k1_2 == steps2 == sum(by_group.values()):
+        raise AssertionError(f"two groups: K1 launched {k1_2} times over {steps2} chunk updates, "
+                             f"metrics {by_group}")
+    alone = {f"n={CATALOG_N}": svc_ms, **group_ms(m_t2)}  # (d)'s mean, the Table II run's
+    both = group_ms(m2)
+    for key, g in m2["groups"].items():
+        path = "catalog" if group_n(key) == CATALOG_N else "table2"
+        launches[f"service_two_groups_{path}"] = g["steps"]
+    print(f"  (e) two groups through one service, {FLEET_JOBS} catalog + {len(t2_jobs)} Table II "
+          f"CherryPick jobs: every outcome equals its lockstep counterpart; chunk steps "
+          f"{by_group}, K1 launches {k1_2}; jobs/s {m2['jobs_per_sec']:.2f}")
+    for g in both:
+        print(f"    {g}: mean step {alone[g]:.3f} ms alone, {both[g]:.3f} ms with the other "
+              f"group live ({both[g] / alone[g]:.3f}x)")
+    out["two_groups"] = {"alone_ms": alone, "both_ms": both, "chunk_steps": by_group,
+                         "jobs_per_s": m2["jobs_per_sec"], "table2_lockstep_s": t2_wall}
+
+    # (f) The daemon: a snapshot file (under --out, else a temporary
+    # directory), parsed.
+    import shutil
+    import tempfile
+
+    tmp = None if out_dir is not None else Path(tempfile.mkdtemp(prefix="chip_smoke_daemon_"))
+    snap = (out_dir or tmp) / "tuning_metrics.json"
+    try:
+        got, _, steps, k1 = service_run(dev, t2_jobs, daemon_path=snap)
+        payload = json.loads(snap.read_text())
+    finally:
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+    hold_same("daemon", want_t2, got)
+    if payload["completed"] != len(t2_jobs) or payload["in_flight"] != 0 or k1 != steps:
+        raise AssertionError(f"daemon snapshot: completed {payload['completed']}, in flight "
+                             f"{payload['in_flight']}; K1 {k1} over {steps} chunk steps")
+    launches["daemon_table2"] = k1
+    print(f"  (f) TuningDaemon: snapshot {snap.name} parses, completed {payload['completed']} of "
+          f"{len(t2_jobs)}, outcomes equal the lockstep session's; K1 launches {k1} over {steps} "
+          f"chunk steps")
+
+    times = {"table2": k1_at_rows(dev, "service_table2", TABLE2_SHAPE),
+             "elastic": k1_at_rows(dev, "elastic", ELASTIC_SHAPE, rows=4)}
+    cat_times = held["k1"]["fleet_catalog"]
+    path_times = {p: cat_times for p in launches if "catalog" in p}
+    path_times.update({p: times["table2"] for p in launches if "table2" in p})
+    path_times["elastic"] = times["elastic"]
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 15 wall time {out['seconds']:.1f} s")
+    report["service"] = out
+    return {"launches": launches, "times": path_times}
 
 
 # ---------------------------------------------------------------- phase 5
@@ -2579,14 +2972,16 @@ def main(argv=None) -> int:
           f"per block (any shape)")
 
     failed = []
-    times, fa_times, ssd_times, rn, fleet, launches = None, None, None, None, None, {}
+    times, fa_times, ssd_times, rn, fleet, service, launches = None, None, None, None, None, None, {}
     seq = {}  # phase 2's traces, which phase 14 holds the fleet against
+    held = {}  # phase 14's catalog fleet and K1 times, which phase 15 holds the service to
     for name, phase in (
         ("kernel", lambda: phase_kernel(dev, report)),
         ("pipeline", lambda: phase_pipeline(dev, SEEDS, report, seq)),
         ("catalog", lambda: phase_catalog(dev, report)),
         ("fixture", lambda: phase_fixture(dev, report)),
-        ("fleet", lambda: phase_fleet(dev, report, seq)),
+        ("fleet", lambda: phase_fleet(dev, report, seq, held)),
+        ("service", lambda: phase_service(dev, report, held, args.out)),
         ("flash", lambda: phase_flash(dev, report)),
         ("forward", lambda: phase_forward(dev, report)),
         ("serve", lambda: phase_serve(dev, report)),
@@ -2616,6 +3011,8 @@ def main(argv=None) -> int:
             rn = out
         elif name == "fleet":
             fleet = out
+        elif name == "service":
+            service = out
         elif name != "serve":
             launches[name] = out
     if args.out is not None:
@@ -2662,6 +3059,25 @@ def main(argv=None) -> int:
         "bound_by": t["bound_by"],
         "library_ms": None,
     } for path, t in fleet["times"].items())
+    # K1 on the service's and the sharded bundles' paths (phase 15): one
+    # launch a chunk step, or a shard step of a bundle.
+    kernels.extend({
+        "name": "ei_argmax",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ei_argmax/csrc/ei_argmax.cu",
+        "replaces": "src/repro/kernels/ei_argmax/kernel.py:110",
+        "path": path,
+        "shape": service["times"][path]["shape"],
+        "launches": n,
+        "max_abs_err": service["times"][path]["max_abs_err"],
+        "ms": service["times"][path]["ms"],
+        "plain_ms": service["times"][path]["plain_ms"],
+        "device_ms": service["times"][path]["device_ms"],
+        "plain_device_ms": service["times"][path]["plain_device_ms"],
+        "bound_ms": service["times"][path]["bound_ms"],
+        "bound_by": service["times"][path]["bound_by"],
+        "library_ms": None,
+    } for path, n in service["launches"].items())
     # K2: the tensor-core kernel runs the bfloat16 paths (a training
     # microbatch runs the forward's shape); the CUDA-core kernel's path is
     # the float32 op, driven once in phase 5.

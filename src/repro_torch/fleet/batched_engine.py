@@ -144,8 +144,8 @@ def batched_search(
     CherryPick over the whole space).  The random initialization consumes
     ``rngs[j]`` exactly like the sequential engine.  ``layout`` is
     "feature", "fused" or "gather" (`fast_bo`).  ``shard``/``devices``
-    (job-axis sharding over several cards) wait for ROADMAP Queue 1 item
-    15 and raise `NotImplementedError`.
+    shard the job axis over several devices (`repro_torch.fleet.sharding`;
+    each job's trace is the unsharded one).
 
     A thin shim: every job is submitted to a fresh `TuningSession` (no
     profiling, no warm start, the splits verbatim), which is drained.

@@ -194,13 +194,16 @@ def tune_fleet(
     `repro_torch.core.fast_bo`) in both engines.  ``objective`` routes the
     scoring ("runtime" | "cost" | weight mapping, see
     `repro_torch.fleet.session.objective_table`); both engines observe the
-    same derived table.  ``shard`` (job-axis sharding over several cards)
-    waits for ROADMAP Queue 1 item 15 and raises `NotImplementedError`.
+    same derived table.  ``shard`` shards the job axis of the batched
+    engine over that many CUDA devices ("auto": every visible one;
+    `repro_torch.fleet.sharding`).
     """
     if mode not in ("ruya", "cherrypick"):
         raise ValueError(f"unknown mode {mode!r}")
     if engine not in ("batched", "sequential"):
         raise ValueError(f"unknown engine {engine!r}")
+    if shard is not None and engine == "sequential":
+        raise ValueError("shard= requires the batched engine")
     if len(jobs) != len(rngs):
         raise ValueError(f"{len(jobs)} jobs but {len(rngs)} rngs")
 
@@ -219,10 +222,8 @@ def tune_fleet(
     # Sequential verification path: the per-job engine with the host-side
     # §III-D split (the session's device split is held equal to it).  The
     # objective routes through the same derived table the session observes.
-    from repro_torch.fleet.session import _SHARDING_ITEM, objective_table
+    from repro_torch.fleet.session import objective_table
 
-    if shard is not None:
-        raise NotImplementedError(_SHARDING_ITEM)
     device = resolve_device(device)  # refuse before profiling without a card
     tables = [objective_table(job, objective) for job in jobs]
     profiles: List[Optional[ProfileResult]] = []

@@ -105,10 +105,10 @@ class ProfileCache:
     from the stale class's trial history.
 
     Thread safety: a cache may be shared by concurrent submitters (the
-    async service of ROADMAP item 15, or several sessions).  Every class-table
-    mutation and the whole `get_or_profile` decision run under ``lock``
-    (re-entrant, exposed) — the probe-classify → hit/miss → store
-    sequence is one atomic unit, so two threads probing into the same
+    async service, `repro_torch.fleet.service`, or several sessions).
+    Every class-table mutation and the whole `get_or_profile` decision run
+    under ``lock`` (re-entrant, exposed) — the probe-classify → hit/miss →
+    store sequence is one atomic unit, so two threads probing into the same
     empty bucket cannot both "miss" and double-profile, and the counters
     stay consistent.  ``last_drift`` is a per-call report: a caller that
     needs it must read it while still holding ``lock`` (the session's

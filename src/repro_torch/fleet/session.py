@@ -1,6 +1,6 @@
 """`TuningSession`: one streaming session API over every tuning path.
 
-Port of `repro/fleet/session.py`, on one device:
+Port of `repro/fleet/session.py`:
 
     session = TuningSession(cache=ProfileCache(), warm_start=True)
     handle  = session.submit(job, seed=0)     # profile → split → enqueue
@@ -46,10 +46,12 @@ Memory-aware narrowing runs on the device: the §III-D priority split comes
 from `repro_torch.core.search_space.split_masks_device` (float64, equal to
 the host rule's lists), so admission cost scales with the catalog.
 
-The reference's multi-device parts wait for ROADMAP Queue 1 item 15 (the
-sharded session, the async service): ``shard=``/``devices=`` other than
-None and `reshard` raise `NotImplementedError` naming it.  The lock and the
-outcome listeners that the service needs are here already.
+Several devices.  ``shard=``/``devices=`` bundle each group's chunks
+across devices, one chunk a device (`repro_torch.fleet.sharding`), and
+`reshard` moves every live search onto another device set mid-flight.  The
+async service (`repro_torch.fleet.service`) steps each admission group's
+chunks from its own host thread through `_admit_group`, `_chunks_for` and
+`_step_chunk`, and may place a group's chunks on a device of its own.
 
 `run_ruya` / `run_cherrypick` (``cost_table=``), `tune_fleet` and
 `batched_search` are thin shims over this engine.
@@ -87,6 +89,11 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.fleet.batched_engine import _CHUNK, _POLL_PERIOD, _fleet_update
 from repro_torch.fleet.profile_cache import MemorySignature, ProfileCache
 from repro_torch.fleet.retry import RetryPolicy, RetryStats, call_with_retry
+from repro_torch.fleet.sharding import (
+    collapse_rows,
+    resolve_shard_devices,
+    sharded_update,
+)
 
 if TYPE_CHECKING:  # import cycle: driver imports session for tune_fleet
     from repro_torch.fleet.driver import FleetJob
@@ -100,11 +107,6 @@ __all__ = [
     "canonical_objective",
     "objective_table",
 ]
-
-_SHARDING_ITEM = (
-    "job-axis sharding over several devices waits for ROADMAP Queue 1 "
-    "item 15 (multi-GPU sharding, async service and daemon)"
-)
 
 _TRIAL_SOURCES = ("init", "search", "warm")
 
@@ -548,30 +550,48 @@ class _JobRec:
 
 
 class _LiveChunk:
-    """One lockstep chunk mid-flight: its state and arguments on the device,
-    member i at row i.
+    """One lockstep chunk (or sharded chunk bundle) mid-flight.
+
+    ``update(state, args)`` is the step: `_fleet_update` on a plain chunk's
+    `FleetState` and argument tuple, or, for a bundle of ``n_shards`` > 1
+    chunks, `repro_torch.fleet.sharding.sharded_update` over their lists,
+    one `FleetState` and one argument tuple a shard, each on its shard's
+    device.  Member i lives at row i once the shards' rows are laid end to
+    end (`collapse_rows`): shards slice the member list contiguously.
 
     A member slot holds None after a mid-flight cancel, fail or preempt: the
     outcome was published already, the row's `done` flag is latched on the
     device (the update leaves done rows untouched), and retirement skips
-    the tombstone.
+    the tombstone.  ``group_key`` is the admission group ((space shape,
+    packed capacity)): the async service steps every chunk of one key from
+    that group's thread (`repro_torch.fleet.service`).
     """
 
-    __slots__ = ("state", "args", "members", "steps_done", "steps_needed")
+    __slots__ = ("state", "args", "members", "update", "steps_done",
+                 "steps_needed", "n_shards", "group_key")
 
-    def __init__(self, state, args, members, steps_needed):
+    def __init__(self, state, args, members, update, steps_needed,
+                 n_shards=1, group_key=None):
         self.state = state
         self.args = args
         self.members = members
+        self.update = update
         self.steps_done = 0
         self.steps_needed = steps_needed
+        self.n_shards = n_shards
+        self.group_key = group_key
+
+    def shards(self) -> List[FleetState]:
+        """The chunk's per-device states, in row order."""
+        return list(self.state) if self.n_shards > 1 else [self.state]
 
 
 class _SpaceEntry:
     """Refcounted per-space cache: the strong reference to the space keeps
     its id() stable for the entry's lifetime; the entry (the encoding and
-    the geometry on the device, a gather layout's (n,n) tensor included)
-    is evicted when the last active submission over the space retires."""
+    the geometry on each device that runs a chunk over the space, a gather
+    layout's (n,n) tensor included) is evicted when the last active
+    submission over the space retires."""
 
     __slots__ = ("space", "count", "enc", "geom")
 
@@ -579,7 +599,7 @@ class _SpaceEntry:
         self.space = space
         self.count = 0
         self.enc: Optional[np.ndarray] = None
-        self.geom: Optional[torch.Tensor] = None
+        self.geom: Dict[torch.device, torch.Tensor] = {}
 
 
 class TuningSession:
@@ -596,6 +616,18 @@ class TuningSession:
     (default: max(n_init, 1)).  ``device`` is where every chunk runs: the
     card unless the caller passes ``device="cpu"``.
 
+    ``shard``/``devices`` switch on job-axis sharding: with S > 1 devices
+    resolved (``shard=S`` CUDA devices, ``shard="auto"``, or an explicit
+    device list, which may repeat a device), each (shape, capacity) group's
+    jobs are bundled into chunks of rows = min(8, max(2, ceil(M/S))), S
+    chunks a bundle, one a device, all stepped together
+    (`repro_torch.fleet.sharding`).  The default (``shard=None``) is the
+    unsharded path, and a sharded session gives every job the outcome of
+    the unsharded one (chunk membership never affects a trace).  Bundles
+    retire as a unit, so with warm starts on, a job submitted mid-flight
+    may see another class-history snapshot at another shard count; drain
+    boundaries make warm seeding independent of it.
+
     Failure semantics.  ``retry`` governs profiling-run faults:
     `TransientRunError`s are retried with the deterministic seeded backoff
     of `repro_torch.fleet.retry` (per-job retry seed derived from ``seed``,
@@ -605,6 +637,8 @@ class TuningSession:
     mid-flight: its completed trials publish immediately and its chunk row
     is frozen through the engine's `done` flag, so its chunk-mates' traces
     are those of an undisturbed run (no op reduces across the job axis).
+    `reshard` re-bundles every live search onto a new device set (devices
+    leaving and joining are one operation), each row resumed verbatim.
     ``drift_tolerance`` (needs a ``cache``) turns on drift detection: a
     recurring job whose fresh probe no longer matches its cached class
     model is re-profiled and re-classed (`ProfileCache.model_drifted`), and
@@ -638,9 +672,10 @@ class TuningSession:
         if mode not in ("ruya", "cherrypick"):
             raise ValueError(f"unknown mode {mode!r}")
         _check_layout(layout)
-        if shard is not None or devices is not None:
-            raise NotImplementedError(_SHARDING_ITEM)
         self.device = resolve_device(device)
+        # None: the unsharded path; else a tuple of >= 2 devices the job
+        # axis is sharded over.
+        self.shard_devices = resolve_shard_devices(shard, devices, self.device)
         self.objective: Objective = canonical_objective(objective)
         self.settings = settings
         self.mode = mode
@@ -658,13 +693,18 @@ class TuningSession:
             None if drift_tolerance is None else float(drift_tolerance)
         )
 
-        # Every access to the shared mutable session state (pending queue,
-        # chunk list, outcome, history and cache tables) and every chunk
-        # state transition happens under this re-entrant lock; waits for
-        # the device happen outside it (`_step_chunk`).  The async service
-        # of ROADMAP item 15 steps chunks from per-group host threads.
+        # Lock discipline (the async service, `repro_torch.fleet.service`,
+        # steps chunks from per-group host threads): every access to the
+        # shared mutable session state (pending queue, chunk list, outcome,
+        # history and cache tables) and every chunk state transition
+        # happens under this re-entrant lock.  Waits for the device happen
+        # outside it (`_step_chunk` reads the done flags and the retiring
+        # rows unlocked, on the chunk only its owner advances), so one
+        # group's device wait does not stall another group's dispatch.  The
+        # host's dispatch of a chunk step does run under it.
         self._lock = threading.RLock()
-        # Called (under the lock) with each published SearchOutcome.
+        # Called (under the lock) with each published SearchOutcome; the
+        # service hooks this for completion signalling and metrics.
         self._outcome_listeners: List[Callable[[SearchOutcome], None]] = []
 
         self.warm_hits = 0  # jobs that were seeded
@@ -925,20 +965,68 @@ class TuningSession:
             sum(1 for m in c.members if m is not None) for c in self._chunks
         ) + len(self._pending)
 
-    def _step_chunk(self, ch: _LiveChunk) -> None:
-        """Advance one chunk by one BO iteration; retire it if finished, or
-        drop it if every member was terminated mid-flight.  State
-        transitions happen under the session lock; the poll of the done
-        flags waits for the device outside it, on a captured reference
-        (only this chunk's owner advances it)."""
+    # ------------------------------------------- async-scheduling surface
+    #
+    # The primitives of `repro_torch.fleet.service`: one thread per live
+    # (space shape, capacity) key drives its own chunks through
+    # `_step_chunk` at its own pace, admitting its pending jobs at its own
+    # iteration boundary.  Chunk membership never affects a trace (no op of
+    # the step reduces across the job axis), so each job's outcome under
+    # the async schedule is that of the lockstep one.
+
+    def _pending_group_keys(self) -> Set[tuple]:
+        """Admission-group keys with pending submissions."""
+        with self._lock:
+            return {(rec.enc.shape, rec.budget) for rec in self._pending}
+
+    def _chunks_for(self, key: tuple) -> List[_LiveChunk]:
+        """Live chunks of one admission group (snapshot)."""
+        with self._lock:
+            return [ch for ch in self._chunks if ch.group_key == key]
+
+    def _admit_group(self, key: tuple, device: DeviceLike = None) -> int:
+        """Admit every pending job of ONE admission group into chunks, the
+        per-group half of `_admit`, run by that group's thread at its own
+        iteration boundary.  ``device`` places the new chunks (and so their
+        compute) on one device; None keeps the session's.  A sharded
+        session bundles across its shard devices and ignores ``device``.
+        Returns the number of jobs admitted."""
+        with self._lock:
+            members = [
+                rec for rec in self._pending
+                if (rec.enc.shape, rec.budget) == key
+            ]
+            if not members:
+                return 0
+            self._pending = [
+                rec for rec in self._pending
+                if (rec.enc.shape, rec.budget) != key
+            ]
+            self._chunks.extend(self._build_group(members, key, device=device))
+            return len(members)
+
+    def _step_chunk(self, ch: _LiveChunk) -> str:
+        """Advance ONE chunk by one BO iteration; retire it if finished.
+
+        Returns "stepped" (still live), "retired" (outcomes published),
+        "dead" (every member was terminated mid-flight and published
+        already), or "gone" (the chunk left `_chunks` under our feet: a
+        concurrent `reshard` rebuilt the fleet and resumed its rows in new
+        chunks).
+
+        The update and every state transition run under the session lock
+        (`cancel` latches a row's `done` flag in place).  The waits for the
+        device, the poll of the done flags and the read of the retiring
+        rows, run outside it: only this chunk's owner advances its state,
+        so the rows it reads cannot change under it, and the outcomes are
+        then published under the lock."""
         with self._lock:
             if ch not in self._chunks:
-                return
+                return "gone"
             if all(m is None for m in ch.members):
                 self._chunks.remove(ch)
-                return
-            _fleet_update(ch.state, *ch.args, xi=self.settings.xi,
-                          layout=self.layout)
+                return "dead"
+            ch.update(ch.state, ch.args)
             ch.steps_done += 1
             retire = ch.steps_done >= ch.steps_needed
             poll = (
@@ -946,15 +1034,17 @@ class TuningSession:
                 and not self.to_exhaustion
                 and ch.steps_done % _POLL_PERIOD == 0
             )
-            done_flags = ch.state.done if poll else None
-        if poll:
-            retire = bool(done_flags.all())  # waits for this chunk's work
+        if poll:  # waits for this chunk's devices
+            retire = all(bool(st.done.all()) for st in ch.shards())
         if not retire:
-            return
+            return "stepped"
+        rows = collapse_rows(ch.state, ch.n_shards)  # waits for the devices
         with self._lock:
-            if ch in self._chunks:
-                self._retire(ch)
-                self._chunks.remove(ch)
+            if ch not in self._chunks:
+                return "gone"
+            self._retire(ch, rows)
+            self._chunks.remove(ch)
+            return "retired"
 
     def drain(self) -> List[SearchOutcome]:
         """Step until every submitted job has finished; returns all outcomes
@@ -974,7 +1064,8 @@ class TuningSession:
         return self.results()
 
     def _check_all_failed(self, waiting: Set[int]) -> None:
-        """The drain guard (see `drain`)."""
+        """The drain guard (see `drain`); shared with the async service's
+        own drain, which waits on worker threads instead of stepping."""
         if not waiting:
             return
         with self._lock:
@@ -1034,10 +1125,35 @@ class TuningSession:
                 self._terminate(handle, "preempted")
             return victims
 
-    def reshard(self, shard=None, devices=None) -> int:
-        """Re-bundle live searches onto another device set: waits for
-        ROADMAP Queue 1 item 15."""
-        raise NotImplementedError(_SHARDING_ITEM)
+    def reshard(
+        self,
+        shard: Union[None, int, str] = None,
+        devices: Optional[Sequence] = None,
+    ) -> int:
+        """Live device churn: re-bundle every mid-flight search onto a new
+        device set (devices leaving and joining are one operation).  Each
+        live row's state is copied to the host (`collapse_rows`), the
+        survivors are regrouped by the admission rule, and chunks are
+        rebuilt at the new shard width with the rows resumed verbatim, so
+        each survivor's outcome is that of an undisturbed run.  Pending
+        jobs are untouched (they admit at the next `step()` under the new
+        layout).  Returns the number of live searches re-bundled."""
+        with self._lock:
+            self.shard_devices = resolve_shard_devices(shard, devices, self.device)
+            survivors: Dict[tuple, List[Tuple[_JobRec, FleetState]]] = {}
+            for ch in self._chunks:
+                rows = collapse_rows(ch.state, ch.n_shards)
+                for i, rec in enumerate(ch.members):
+                    if rec is not None:
+                        survivors.setdefault((rec.enc.shape, rec.budget), []).append(
+                            (rec, FleetState(*(f[i] for f in rows)))
+                        )
+            self._chunks = []
+            for key, pairs in survivors.items():
+                self._chunks.extend(self._build_group(
+                    [p[0] for p in pairs], key, resume=[p[1] for p in pairs],
+                ))
+            return sum(len(p) for p in survivors.values())
 
     def _live_recs(self) -> List[_JobRec]:
         """Every unfinished submission: pending plus live chunk members."""
@@ -1077,20 +1193,24 @@ class TuningSession:
     ) -> None:
         """Retire member ``i`` of a live chunk mid-flight: publish its
         partial outcome from a host copy of its row, tombstone the member
-        slot, and freeze the row by latching its `done` flag on the device
-        (`fast_bo.fleet_step` gates every write on ``live = ~done &
-        budget_left``, so a done row is inert)."""
-        st = ch.state
+        slot, and freeze the row by latching its `done` flag on the shard
+        that holds it (`fast_bo.fleet_step` gates every write on ``live =
+        ~done & budget_left``, so a done row is inert)."""
+        rows = collapse_rows(ch.state, ch.n_shards)
         self._publish(
             rec,
-            k=int(st.t[i]),
-            tried_row=st.tried[i].cpu().numpy(),
-            stop=int(st.stop[i]),
-            pb=int(st.pb[i]),
+            k=int(rows.t[i]),
+            tried_row=rows.tried[i],
+            stop=int(rows.stop[i]),
+            pb=int(rows.pb[i]),
             failure=reason,
         )
         ch.members[i] = None
-        st.done[i] = True
+        for st in ch.shards():
+            if i < len(st.done):
+                st.done[i] = True
+                return
+            i -= len(st.done)
 
     # ---------------------------------------------------------- internals
 
@@ -1208,49 +1328,138 @@ class TuningSession:
             entry.enc = encode_features(space.encoded())
         return entry.enc
 
-    def _geom(self, space) -> torch.Tensor:
-        """Per-space geometry on the device, once per space (seed-replica
-        fleets alias one SearchSpace): the (n,d) encoding (feature and
-        fused layouts) or the (n,n) distance tensor (gather layout)."""
+    def _geom(self, space, device: torch.device) -> torch.Tensor:
+        """Per-space geometry on ``device``, once per (space, device)
+        (seed-replica fleets alias one SearchSpace): the (n,d) encoding
+        (feature and fused layouts) or the (n,n) distance tensor (gather
+        layout).  All of a space's copies go with its last job."""
         entry = self._spaces[id(space)]
-        if entry.geom is None:
+        geom = entry.geom.get(device)
+        if geom is None:
             enc = self._encoding(space)
-            entry.geom = (
-                precompute_d2(enc, self.device) if self.layout == "gather"
-                else torch.from_numpy(np.ascontiguousarray(enc)).to(self.device)
+            geom = entry.geom[device] = (
+                precompute_d2(enc, device) if self.layout == "gather"
+                else torch.from_numpy(np.ascontiguousarray(enc)).to(device)
             )
-        return entry.geom
+        return geom
 
     def _admit(self) -> None:
         """Form lockstep chunks from the pending queue: jobs grouped by
         (space shape, packed capacity), in submission order, sliced into
-        chunks of at most `_CHUNK`."""
+        chunks of at most `_CHUNK`, or bundled across the shard devices
+        when the session shards."""
         if not self._pending:
             return
         groups: Dict[tuple, List[_JobRec]] = {}
         for rec in self._pending:
             groups.setdefault((rec.enc.shape, rec.budget), []).append(rec)
         self._pending = []
-        for (shape, cap), members in groups.items():
-            n_init_slots = max(1, max(len(r.init_list) for r in members))
-            for lo in range(0, len(members), _CHUNK):
-                self._chunks.append(
-                    self._build_chunk(
-                        members[lo : lo + _CHUNK], shape, cap, n_init_slots
-                    )
+        for key, members in groups.items():
+            self._chunks.extend(self._build_group(members, key))
+
+    def _build_group(
+        self, members: List[_JobRec], key: tuple, *,
+        resume: Optional[List[FleetState]] = None, device: DeviceLike = None,
+    ) -> List[_LiveChunk]:
+        """The chunks of one admission group's ``members``: bundles across
+        the shard devices when the session shards, else chunks of at most
+        `_CHUNK` on ``device`` (None: the session's).  ``resume`` holds one
+        host row a member (`reshard`)."""
+        shape, cap = key
+        n_init_slots = max(1, max(len(r.init_list) for r in members))
+        if self.shard_devices is not None:
+            return self._build_sharded(members, shape, cap, n_init_slots, resume)
+        return [
+            self._build_chunk(
+                members[lo : lo + _CHUNK], shape, cap, n_init_slots,
+                resume=None if resume is None else resume[lo : lo + _CHUNK],
+                device=device,
+            )
+            for lo in range(0, len(members), _CHUNK)
+        ]
+
+    def _build_sharded(
+        self, members: List[_JobRec], shape, cap: int, n_init_slots: int,
+        resume: Optional[List[FleetState]] = None,
+    ) -> List[_LiveChunk]:
+        """Bundle one (shape, capacity) group's jobs across the shard
+        devices: chunks of ``rows`` jobs, up to S of them a bundle, one a
+        device, all stepped by one `sharded_update` call a step.
+
+        Rows are min(_CHUNK, max(2, ceil(M/S))), the reference's rule, so a
+        small fleet still spreads across devices and bundles retire when
+        the reference's do.  Each shard holds exactly its members (the last
+        may be shorter; no dummy rows).  A leftover bundle of one chunk is
+        a plain chunk on the first shard device."""
+        devs = self.shard_devices
+        m = len(members)
+        rows = min(_CHUNK, max(2, -(-m // len(devs))))
+        out: List[_LiveChunk] = []
+        for lo in range(0, m, len(devs) * rows):
+            sl = members[lo : lo + len(devs) * rows]
+            rs = None if resume is None else resume[lo : lo + len(devs) * rows]
+            n_shards = -(-len(sl) // rows)
+            if n_shards == 1:
+                out.append(self._build_chunk(sl, shape, cap, n_init_slots,
+                                             resume=rs, device=devs[0]))
+                continue
+            parts = [
+                self._chunk_arrays(
+                    sl[k * rows : (k + 1) * rows], shape, cap, n_init_slots,
+                    resume=None if rs is None else rs[k * rows : (k + 1) * rows],
                 )
+                for k in range(n_shards)
+            ]
+            placed = [
+                self._place(sl[k * rows : (k + 1) * rows], parts[k], devs[k])
+                for k in range(n_shards)
+            ]
+            out.append(_LiveChunk(
+                state=[p[0] for p in placed],
+                args=[p[1] for p in placed],
+                members=sl,
+                update=sharded_update(devs[:n_shards], self.settings.xi, self.layout),
+                steps_needed=max(p[2] for p in parts),
+                n_shards=n_shards,
+                group_key=(shape, cap),
+            ))
+        return out
 
     def _build_chunk(
         self, members: List[_JobRec], shape, cap: int, n_init_slots: int,
+        resume: Optional[List[FleetState]] = None, device: DeviceLike = None,
     ) -> _LiveChunk:
-        """State and arguments of one lockstep chunk, one row per member,
-        built on the host and moved to the device once.  The geometry is
-        one contiguous (J,·,·) tensor (the EI/argmax kernel takes no
-        strided view)."""
+        """One lockstep chunk on ``device`` (None: the session's)."""
+        arrays = self._chunk_arrays(members, shape, cap, n_init_slots, resume=resume)
+        state, args = self._place(
+            members, arrays, self.device if device is None else resolve_device(device)
+        )
+        xi, layout = self.settings.xi, self.layout
+        return _LiveChunk(
+            state=state,
+            args=args,
+            members=members,
+            update=lambda st, a: _fleet_update(st, *a, xi=xi, layout=layout),
+            steps_needed=arrays[2],
+            group_key=(shape, cap),
+        )
+
+    def _chunk_arrays(
+        self, members: List[_JobRec], shape, cap: int, n_init_slots: int,
+        resume: Optional[List[FleetState]] = None,
+    ) -> Tuple[dict, tuple, int]:
+        """Host state, host arguments and step count of one lockstep chunk,
+        one row per member.
+
+        ``resume`` (the `reshard` path) supplies one host row a member: the
+        row is restored verbatim instead of cold or warm initialized, so a
+        re-bundled search continues where its old chunk left off.  The
+        arguments are rebuilt from the recs either way: they are a function
+        of the submission, and a changed ``n_init_slots`` width changes
+        nothing (the scripted pick is gated by ``init_count``)."""
         n, d = shape
         rows = len(members)
         capacity = max(cap, 1)  # a zero-budget job still has one (inert) slot
-        dev = self.device
 
         costs = np.zeros((rows, n), np.float32)
         prio_mask = np.zeros((rows, n), bool)
@@ -1258,11 +1467,18 @@ class TuningSession:
         init_picks = np.zeros((rows, n_init_slots), np.int32)
         init_count = np.zeros(rows, np.int32)
         max_trials = np.zeros(rows, np.int32)
-        obs0 = np.zeros((rows, n), bool)
-        tried0 = np.full((rows, capacity), -1, np.int32)
-        py0 = np.zeros((rows, capacity), np.float32)
-        feats0 = np.zeros((rows, capacity, d), np.float32)
-        t0 = np.zeros(rows, np.int32)
+        state = {
+            "obs": np.zeros((rows, n), bool),
+            "tried": np.full((rows, capacity), -1, np.int32),
+            "py": np.zeros((rows, capacity), np.float32),
+            "feats": np.zeros((rows, capacity, d), np.float32),
+            "t": np.zeros(rows, np.int32),
+            "stop": np.full(rows, -1, np.int32),
+            "pb": np.full(rows, -1, np.int32),
+            "done": np.zeros(rows, bool),
+            "last_ei": np.zeros(rows, np.float32),
+            "last_best": np.full(rows, np.inf, np.float32),
+        }
 
         for i, rec in enumerate(members):
             costs[i] = rec.table64.astype(np.float32)
@@ -1271,57 +1487,56 @@ class TuningSession:
             init_picks[i, : len(rec.init_list)] = rec.init_list
             init_count[i] = len(rec.init_list)
             max_trials[i] = rec.budget
+            if resume is not None:
+                for name, value in resume[i]._asdict().items():
+                    state[name][i] = value
+                continue
             w = len(rec.seed_trials)
             if w:
                 idx = np.asarray([s.index for s in rec.seed_trials], np.int64)
-                obs0[i, idx] = True
-                tried0[i, :w] = idx.astype(np.int32)
-                py0[i, :w] = np.asarray(
+                state["obs"][i, idx] = True
+                state["tried"][i, :w] = idx.astype(np.int32)
+                state["py"][i, :w] = np.asarray(
                     [s.cost for s in rec.seed_trials], np.float32
                 )
                 # Rows of the canonical float32 encoding, as the on-device
                 # observation writes would have filled them.
-                feats0[i, :w] = rec.enc[idx]
-                t0[i] = w
+                state["feats"][i, :w] = rec.enc[idx]
+                state["t"][i] = w
 
-        state = FleetState.from_numpy(
-            {
-                "obs": obs0, "tried": tried0, "py": py0, "feats": feats0,
-                "t": t0, "stop": np.full(rows, -1, np.int32),
-                "pb": np.full(rows, -1, np.int32), "done": np.zeros(rows, bool),
-                "last_ei": np.zeros(rows, np.float32),
-                "last_best": np.full(rows, np.inf, np.float32),
-            },
-            dev,
-        )
-
-        def put(a):
-            return torch.from_numpy(a).to(dev)
-
-        geom = torch.stack([self._geom(rec.job.space) for rec in members])
         args = (
-            geom, put(costs), put(prio_mask), put(rem_mask), put(init_picks),
-            put(init_count), put(max_trials),
-            put(np.full(rows, self.settings.min_observations, np.int32)),
-            put(np.full(rows, self.settings.ei_stop_rel, np.float32)),
-            put(np.full(rows, self.to_exhaustion, bool)),
+            costs, prio_mask, rem_mask, init_picks, init_count, max_trials,
+            np.full(rows, self.settings.min_observations, np.int32),
+            np.full(rows, self.settings.ei_stop_rel, np.float32),
+            np.full(rows, self.to_exhaustion, bool),
         )
         # One extra pass beyond the largest fresh-trial budget: it observes
         # nothing, but it is where a budget-capped job records a phase
         # boundary reached exactly at its last trial, and where budget
         # exhaustion latches `done`.
-        steps_needed = int(np.max(max_trials - t0)) + 1
-        return _LiveChunk(state, args, members, steps_needed)
+        steps_needed = int(np.max(max_trials - state["t"])) + 1
+        return state, args, steps_needed
 
-    def _retire(self, ch: _LiveChunk) -> None:
-        host = {k: ch.state._asdict()[k].cpu().numpy()
-                for k in ("tried", "t", "stop", "pb")}
+    def _place(
+        self, members: List[_JobRec], arrays: tuple, device: torch.device,
+    ) -> Tuple[FleetState, tuple]:
+        """A chunk's state and arguments moved to ``device`` once, its
+        geometry one contiguous (J,·,·) stack of the per-space tensors (the
+        EI/argmax kernel takes no strided view)."""
+        state_np, args_np, _ = arrays
+        geom = torch.stack([self._geom(rec.job.space, device) for rec in members])
+        args = (geom,) + tuple(torch.from_numpy(a).to(device) for a in args_np)
+        return FleetState.from_numpy(state_np, device), args
+
+    def _retire(self, ch: _LiveChunk, rows: FleetState) -> None:
+        """Publish every live member of a finished chunk from ``rows``, its
+        host copy (`collapse_rows`)."""
         for i, rec in enumerate(ch.members):
             if rec is None:
                 continue  # retired mid-flight; outcome already published
             self._publish(
-                rec, k=int(host["t"][i]), tried_row=host["tried"][i],
-                stop=int(host["stop"][i]), pb=int(host["pb"][i]),
+                rec, k=int(rows.t[i]), tried_row=rows.tried[i],
+                stop=int(rows.stop[i]), pb=int(rows.pb[i]),
             )
 
     def _publish(

@@ -6,8 +6,12 @@ stream and returns ((J,) int32 argmax, (J,) float32 max EI).  It allocates
 the outputs and the per-block partials with `torch.empty`; the kernel
 allocates nothing.  The kernel folds the partials itself (the last block of
 a job to finish), counting finished blocks in a per-device int32 buffer
-that each call leaves at 0 for the next; calls share it, so they run on one
-stream at a time.  A failed build or launch raises.
+that each call leaves at 0 for the next.  Calls on a device share that
+buffer, which is safe because they share one stream, so the device runs
+them one after another: every host thread's current stream is the device's
+default stream, and the port creates no streams on the paths that call the
+kernel (the fleet's service calls it from several threads).  A failed
+build or launch raises.
 
 The library picks the route by (B, d): B <= 64 and d <= 8 take the
 register route (a candidate's features and its triangular solve in
@@ -22,12 +26,15 @@ so B <= 54713 at d = 6 (`blocked_tile` in the source).  `_launch` forces
 one route, for the tests that hold each against the plain version.
 
 ``ei_argmax_cuda.launches`` counts the calls that launched the kernel (one
-launch a call), so a run can show that its main path went through it.
+launch a call), so a run can show that its main path went through it.  The
+count and the creation of a device's buffer happen under one lock, so
+threads that launch at once neither lose a count nor make two buffers.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from pathlib import Path
 from typing import Dict
 
@@ -44,6 +51,7 @@ _AUTO, _REGISTERS, _BLOCKED = 0, 1, 2  # the library's route codes (`ei_argmax_t
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DONE: Dict[torch.device, torch.Tensor] = {}  # finished-block counts, per device
+_LOCK = threading.Lock()  # guards _DONE and the launch count
 
 
 def load() -> ctypes.CDLL:
@@ -74,10 +82,11 @@ def _check(name, x, dtype, shape, device):
 def _done(dev: torch.device, J: int) -> torch.Tensor:
     """At least J zeroed counts on ``dev``, kept between calls (each call
     leaves them at 0)."""
-    buf = _DONE.get(dev)
-    if buf is None or buf.numel() < J:
-        buf = _DONE[dev] = torch.zeros(max(J, 64), dtype=torch.int32, device=dev)
-    return buf
+    with _LOCK:
+        buf = _DONE.get(dev)
+        if buf is None or buf.numel() < J:
+            buf = _DONE[dev] = torch.zeros(max(J, 64), dtype=torch.int32, device=dev)
+        return buf
 
 
 def ei_argmax_cuda(
@@ -139,7 +148,8 @@ def _launch(enc, mask, feats, pm, alpha, chol, scal, xi: float, route: int):
     if err != 0:
         msg = lib.ei_argmax_error_string(err).decode()
         raise RuntimeError(f"ei_argmax kernel launch failed: CUDA error {err} ({msg})")
-    ei_argmax_cuda.launches += 1
+    with _LOCK:
+        ei_argmax_cuda.launches += 1
     return out_idx, out_val
 
 

@@ -1,5 +1,7 @@
 """Training and serving runtime (port of `repro/runtime`): step factories,
-the fault-tolerant train loop and the decode loop.
+the fault-tolerant train loop, the decode loop, and the tuning-as-a-service
+daemon (`TuningDaemon`, `runtime/serve.py`)."""
 
-The tuning daemon (`runtime/serve.py`) comes with ROADMAP Queue 1 item 15.
-"""
+from repro_torch.runtime.serve import TuningDaemon
+
+__all__ = ["TuningDaemon"]

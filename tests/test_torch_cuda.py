@@ -249,6 +249,111 @@ def test_fused_fleet_on_the_card_matches_the_cpu(dev, J, monkeypatch):
     assert full >= J - 1, f"only {full} of {J} card traces matched the CPU's in full"
 
 
+def counted_fleet_updates(monkeypatch):
+    """Wrap the plain chunk's and the bundle's update: one count a chunk
+    (or shard) step, the calls that launch K1 in the fused layout."""
+    import threading
+
+    from repro_torch.fleet import session as session_mod, sharding
+
+    steps, lock = [0], threading.Lock()
+    for mod in (session_mod, sharding):
+        def counted(*args, _update=mod._fleet_update, **kw):
+            with lock:
+                steps[0] += 1
+            return _update(*args, **kw)
+
+        monkeypatch.setattr(mod, "_fleet_update", counted)
+    return steps
+
+
+def drain_fleet(dev, J, **kw):
+    """`fleet_jobs(J)` through a fused session on the card: its outcomes."""
+    from repro_torch.core.bayesopt import BOSettings
+    from repro_torch.fleet import FleetJob, TuningSession
+
+    space, table, pools = fleet_jobs(J)
+    session = TuningSession(settings=BOSettings(max_iters=16), layout="fused", device=dev, **kw)
+    hs = [session.submit(FleetJob(name=f"j{j}", space=space, cost_table=table), seed=j,
+                         priority=p, remaining=r) for j, (p, r) in enumerate(pools)]
+    session.drain()
+    return [h.outcome().as_dict() for h in hs]
+
+
+def test_sharded_fleet_on_the_card_matches_unsharded(dev, monkeypatch):
+    """Sixteen fused searches bundled over ``["cuda:0"] * 2`` (two shards of
+    eight rows, the unsharded chunks' extent): every outcome equals the
+    unsharded session's, and K1 launches once per shard per bundle step."""
+    want = drain_fleet(dev, 16)
+    steps = counted_fleet_updates(monkeypatch)
+    kernel.ei_argmax_cuda.launches = 0
+    got = drain_fleet(dev, 16, devices=["cuda:0"] * 2)
+    torch.cuda.synchronize()
+    assert got == want
+    assert kernel.ei_argmax_cuda.launches == steps[0] > 16
+
+
+def test_service_fleet_on_the_card_matches_lockstep(dev, monkeypatch):
+    """The same sixteen searches through a `TuningService` on the card,
+    submitted while it is paused (so it forms the lockstep chunks), then
+    drained by its worker threads: every outcome equals the lockstep
+    session's, and K1's launches equal the chunk steps `metrics()` counts."""
+    from repro_torch.core.bayesopt import BOSettings
+    from repro_torch.fleet import FleetJob, TuningService
+
+    want = drain_fleet(dev, 16)
+    space, table, pools = fleet_jobs(16)
+    steps = counted_fleet_updates(monkeypatch)
+    kernel.ei_argmax_cuda.launches = 0
+    with TuningService(settings=BOSettings(max_iters=16), layout="fused", device=dev) as svc:
+        svc.pause()
+        hs = [svc.submit(FleetJob(name=f"j{j}", space=space, cost_table=table), seed=j,
+                         priority=p, remaining=r) for j, (p, r) in enumerate(pools)]
+        svc.drain()
+        metrics = svc.metrics()
+    torch.cuda.synchronize()
+    assert [h.outcome().as_dict() for h in hs] == want
+    counted = sum(g["steps"] for g in metrics["groups"].values())
+    assert kernel.ei_argmax_cuda.launches == steps[0] == counted > 16
+    assert {g["device"] for g in metrics["groups"].values()} == {"cuda:0"}
+
+
+def test_kernel_from_two_threads(dev):
+    """K1 at J = 8 called 50 times from each of two threads at once, on the
+    one default stream they share: every result equals the same call made
+    in turn, and no launch goes uncounted."""
+    import threading
+
+    cases = [job_axis_case(dev, n, d, cap, ks) for n, d, cap, ks in (
+        (69, 4, 69, [3, 10, 40, 69, 5, 68, 20, 7]),
+        (5000, 6, 24, [3, 4, 8, 12, 16, 20, 24, 6]),
+    )]
+    want = [ei_argmax(*args) for args in cases]
+    torch.cuda.synchronize()
+    before = kernel.ei_argmax_cuda.launches
+    got, errors = [[], []], []
+    barrier = threading.Barrier(2)
+
+    def run(k):
+        try:
+            barrier.wait(timeout=30.0)
+            for _ in range(50):
+                got[k].append(ei_argmax(*cases[k]))
+            torch.cuda.synchronize()
+        except BaseException as e:  # pragma: no cover
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60.0)
+    assert not errors
+    assert kernel.ei_argmax_cuda.launches == before + 100
+    for k in range(2):
+        assert all(torch.equal(i, want[k][0]) and torch.equal(v, want[k][1]) for i, v in got[k])
+
+
 def test_device_split_on_the_card(dev):
     """`split_masks_device` on the card equals the host split's lists in
     every branch, at 131072 configurations and for the paper jobs."""

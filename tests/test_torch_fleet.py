@@ -22,6 +22,7 @@ test states the number of full matches it requires.
 
 import numpy as np
 import pytest
+import torch
 
 from repro.cluster.simulator import ClusterSimulator as RefSim
 from repro.cluster.workloads import JOBS as REF_JOBS
@@ -194,12 +195,13 @@ def test_fleet_entry_points_validate():
         batched_search(ps.space, [ps.normalized], rng, layout="sparse", device="cpu")
     with pytest.raises(ValueError):
         batched_search(ps.space, [ps.normalized], rng * 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        batched_search(ps.space, [ps.normalized], rng, shard=2, device="cpu")
+    too_many = torch.cuda.device_count() + 1  # the reference's refusals
+    with pytest.raises(ValueError, match="device"):
+        batched_search(ps.space, [ps.normalized], rng, shard=too_many, device="cpu")
     job = cluster_fleet(["kmeans/spark/bigdata"])
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tune_fleet(job, rng, shard=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="device"):
+        tune_fleet(job, rng, shard=too_many, device="cpu")
+    with pytest.raises(ValueError, match="requires the batched engine"):
         tune_fleet(job, rng, shard=2, engine="sequential", device="cpu")
     with pytest.raises(ValueError):
         tune_fleet(job, rng, engine="vmap", device="cpu")

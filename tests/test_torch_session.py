@@ -415,13 +415,21 @@ def test_n512_budgeted_fixture_through_the_session(layout):
     assert full >= 5, f"only {full} of {len(outcomes)} fixture traces matched in full"
 
 
-def test_sharding_waits_for_item_15():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        TuningSession(shard=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        TuningSession(devices=["cpu", "cpu"], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        TuningSession(device="cpu").reshard(2)
+def test_session_rejects_impossible_shard_count():
+    """The reference's `test_session_rejects_impossible_shard_count`: more
+    shards than CUDA devices raise, naming the count, at construction and
+    at `reshard`; a device list that disagrees with ``shard`` raises."""
+    import torch
+
+    too_many = torch.cuda.device_count() + 1
+    with pytest.raises(ValueError, match="device"):
+        TuningSession(shard=too_many, device="cpu")
+    with pytest.raises(ValueError, match="device"):
+        TuningSession(device="cpu").reshard(too_many)
+    with pytest.raises(ValueError, match="disagrees"):
+        TuningSession(shard=3, devices=["cpu", "cpu"], device="cpu")
+    assert TuningSession(devices=["cpu", "cpu"], device="cpu").shard_devices == (
+        torch.device("cpu"),) * 2
     with pytest.raises(ValueError):
         TuningSession(layout="sparse", device="cpu")
     with pytest.raises(ValueError):
@@ -437,7 +445,7 @@ def test_gather_geometry_released_with_its_last_job():
     b = session.submit(FleetJob(name="b", space=job.space, cost_table=job.cost_table), seed=1)
     session.step()
     (entry,) = session._spaces.values()
-    assert entry.count == 2 and tuple(entry.geom.shape) == (60, 60)
+    assert entry.count == 2 and tuple(entry.geom[session.device].shape) == (60, 60)
     session.cancel(a)
     assert entry.count == 1 and session._spaces
     session.drain()
