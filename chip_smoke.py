@@ -35,7 +35,10 @@ Phases, each reported on its own lines:
      at the forward shape each kernel, the plain version and
      `scaled_dot_product_attention` (the library yardstick, which the port
      never calls) are timed, and the float32 op is driven once as the
-     CUDA-core kernel's path;
+     CUDA-core kernel's path; then the tensor-core kernel at the shape of
+     each forward of phases 16-20 (kimi-k2's D = 112, granite-34b's one KV
+     head, qwen1.5-32b's 40/40, zamba2's T = 32768, whisper's decoder,
+     llava's 3584 positions), held and timed the same way;
   6. the Qwen3-8B teacher-forced forward at full width and depth (36
      layers, float32 parameters drawn on the card from a seed, bfloat16
      compute, B=1, T=4096), held against the same parameters run through
@@ -49,9 +52,9 @@ Phases, each reported on its own lines:
      card, at the shapes of `tests/test_kernels.py`, the smoke model's
      chunk, ragged shapes, Q = 512 with N = 192 and P = 96, B and C per
      group (G = 1, 2 and 3, as the model passes them), bfloat16-valued
-     inputs, and the shapes of phases 9, 10 and 13, timed there with
-     bfloat16-valued x, B and C (as the model gives them) and with float32
-     values;
+     inputs, and the shapes of phases 9, 10, 13 and 18 (zamba2's forward
+     and prefill), timed there with bfloat16-valued x, B and C (as the
+     model gives them) and with float32 values;
   9. the mamba2-370m teacher-forced forward at full width and depth (48
      layers, float32 parameters drawn on the card from a seed, bfloat16
      compute, B=1, T=32768), held against the same parameters run through
@@ -112,21 +115,43 @@ Phases, each reported on its own lines:
      lockstep counterpart, each group's step ms alone and with the other
      live; (f) a `TuningDaemon` whose metrics snapshot (under ``--out``)
      parses and counts every job; and the EI/argmax kernel at the shapes of
-     (c) and (e) against its plain version and timed.
+     (c) and (e) against its plain version and timed;
+ 16-20. the other eight architectures at full width, random parameters
+     drawn on the card from seed 0, depth cut where a model does not fit
+     the card (`FAMILY_DEPTH`): each teacher-forced forward (16: granite-8b,
+     granite-34b, qwen1.5-32b at B=1, T=4096; 17: kimi-k2 and arctic at
+     T=4096, arctic's attention chunked; 18: zamba2 at T=32768; 19:
+     whisper-tiny at B=4 with 1500 frames and 512 tokens; 20: llava with
+     2880 patches and 704 tokens) with its kernels counted, the first
+     launch of each held to its plain version (arctic's first chunked
+     attention to `_sdpa`), timed, profiled, and held to the same model
+     with the kernels' plain versions in their place (the MoE's routing
+     replayed), the dense attention route reported beside it; then serving
+     through `repro_torch.launch.serve` (granite-34b, kimi-k2, arctic at
+     batch 4 x 512 tokens and 32 new; zamba2 at 8 x 2048 and 64; whisper
+     at 8 x 64 and 64, its cross caches built at prefill; llava at 2 x
+     (2880 patches + 320 tokens) and 64), the served path's logits and
+     tokens held to the forward's (but the MoE's: a forward routes all its
+     tokens together, so its capacity drops others).  Each phase prints
+     its wall time and peak memory and frees its models.
 
 Phases 2-4, 14 and 15 are the paths that run the EI/argmax kernel, phases 6 and
 12 the paths that run the tensor-core flash-attention kernel (the bfloat16
 models; the CUDA-core one must not run there), phase 5's float32 op the
 path of the CUDA-core one, phases 9, 10 and 13 the paths that run the SSD
-kernel, phase 11 the RMSNorm op.  Each sets the launch counts to 0 just
+kernel, phase 11 the RMSNorm op, phases 16-20 the other families' paths
+of the tensor-core flash kernel (each forward but arctic's) and of the SSD
+kernel (zamba2's forward and prefill).  Each sets the launch counts to 0 just
 before its run, reads them just after, and fails unless its kernel ran
 exactly once per fused BO step (phases 2-4), once per lockstep chunk step
 of a fused fleet (phase 14: one launch for all the chunk's rows; phase 15:
 also once per shard of a bundle step, and as many times as the service's
 `metrics()` counts chunk steps), once
-per layer of each forward (phases 6 and 9), once per layer of the prefill
-and never in a decode step (phase 10), once per call of the op (phases 5
-and 11), or
+per layer of each forward (phases 6 and 9, 16-20: K2 once a layer, a
+hybrid's site or a decoder layer, never for arctic; K3 once an SSM layer),
+once per layer of the prefill and never in a decode step (phases 10 and
+18; K2 never while serving), once per call of the op (phases 5 and 11),
+or
 twice per layer and microbatch of a training step, in the forward and in
 the remat recompute (phases 12 and 13).  Qwen3 serving runs no kernel,
 as in the reference (prefill and decode attend through the cache); phase 7
@@ -1671,6 +1696,19 @@ FA_TOL = {"float32": dict(rtol=1e-4, atol=2e-5), "bfloat16": dict(rtol=2.0**-7, 
 SDPA_TOL = dict(rtol=2.0**-7, atol=2e-2)
 FWD_SHAPE = (1, 4096, 32, 8, 128)  # Qwen3-8B forward: (B, T, H, KV, D)
 ARCH = "qwen3-8b"
+# K2's shapes on the other families' forwards (phases 16-20), bfloat16, causal;
+# granite-8b's is FWD_SHAPE.
+FAMILY_FA_SHAPES = {
+    "kimi-k2-1t-a32b": (1, 4096, 64, 8, 112),  # D = 112, between the tile widths
+    "granite-34b": (1, 4096, 48, 1, 128),  # MQA: one KV head
+    "qwen1.5-32b": (1, 4096, 40, 40, 128),  # no grouping
+    "zamba2-1.2b": (1, 32768, 32, 32, 64),  # the shared block at T = 32768
+    "whisper-tiny": (4, 512, 6, 6, 64),  # the decoder
+    "llava-next-mistral-7b": (1, 3584, 32, 8, 128),  # 2880 patches + 704 text tokens
+}
+# The plain version's tile loop is too long to capture in a CUDA graph
+# past this many (query tile, key tile) pairs: timed by events alone.
+PLAIN_GRAPH_MAX_PAIRS = 4096
 # Device names of K2's two kernels: the CUDA-core one (float32, and bfloat16
 # with D % 8 != 0) and the tensor-core one (bfloat16 with D % 8 == 0).
 FLASH_KERNEL_NAMES = ("flash_fwd_kernel", "flash_fwd_wgmma_kernel")
@@ -1796,7 +1834,38 @@ def phase_flash(dev, report) -> dict:
                                  library_ms=lib_ms, library_device_ms=l_dev, sdpa_err=err_lib,
                                  **bound)
             del q, k, v, out
+        shapes = {}
+        for arch, (sb, st, sh, skv, sd) in FAMILY_FA_SHAPES.items():
+            q, k, v = fa_inputs(dev, 300 + st + sh, sb, st, sh, skv, sd, "bfloat16")
+            shape = f"B={sb} T={st} H={sh} KV={skv} D={sd}"
+            name = f"{arch} forward shape {shape} causal bfloat16"
+            out = check(name, q, k, v, True)
+            err_lib = assert_close(sdpa(q, k, v).float().cpu().numpy(), out.float().cpu().numpy(),
+                                   **SDPA_TOL, what=f"{name} vs SDPA")
+            pairs = (-(-st // 128)) ** 2 // 2  # the plain version's tile loop, over all (B, H)
+            ms = cuda_time_ms(lambda: flash_attention(q, k, v, True), reps=20)
+            plain_ms = cuda_time_ms(lambda: flash_attention_plain(q, k, v),
+                                    reps=1 if pairs > PLAIN_GRAPH_MAX_PAIRS else 3, warmup=0)
+            lib_ms = cuda_time_ms(lambda: sdpa(q, k, v), reps=20)
+            k_dev = graph_ms(lambda: flash_attention(q, k, v, True))
+            p_dev = (None if pairs > PLAIN_GRAPH_MAX_PAIRS
+                     else graph_ms(lambda: flash_attention_plain(q, k, v), calls=1, reps=3))
+            l_dev = graph_ms(lambda: sdpa(q, k, v))
+            bound = flash_bound(sb, st, sh, skv, sd, True, 2)
+            print(f"  time at {arch}'s shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+                  f"{lib_ms:.4f} ms (events); device: kernel {k_dev:.4f} ms, plain "
+                  f"{'not captured' if p_dev is None else f'{p_dev:.4f} ms'}, SDPA {l_dev:.4f} ms; "
+                  f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}); kernel at "
+                  f"{bound['bound_ms'] / k_dev:.3f} of its bound, {k_dev / l_dev:.2f}x SDPA; "
+                  f"max |kernel - SDPA| {err_lib:.3e}")
+            shapes[arch] = dict(shape=f"{shape} bfloat16 causal", max_abs_err=errs[name], ms=ms,
+                                plain_ms=plain_ms, device_ms=k_dev, plain_device_ms=p_dev,
+                                library_ms=lib_ms, library_device_ms=l_dev, sdpa_err=err_lib,
+                                **bound)
+            del q, k, v, out
+            torch.cuda.empty_cache()
     routes["cuda_core"]["op_launches"] = op_counts["cuda_core"]
+    routes["shapes"] = shapes
     report["flash"] = {"case_errs": errs, **routes}
     return routes
 
@@ -2059,6 +2128,7 @@ def decode_breakdown(model, batch, steps: int = 8, max_len: int = SERVE_MAX_LEN)
     from torch.profiler import ProfilerActivity, profile
 
     b, t = batch["tokens"].shape
+    t += batch["patches"].shape[1] if "patches" in batch else 0  # decoding starts after them
     with torch.inference_mode():
         cache = model.init_cache(b, max_len)
         logits, cache = model.prefill(batch, cache)
@@ -2099,10 +2169,13 @@ SSD_GROUPED = [  # (b, nc, q, h, p, n, groups, bf16): B and C per group, as the 
 SSD_TOL = dict(rtol=1e-4, atol=1e-4)
 SSM_FWD_T = 32768  # the reference's prefill_32k sequence length, at batch 1
 SERVE_SSM_BATCH, SERVE_SSM_PROMPT, SERVE_SSM_NEW = 8, 2048, 64
-SSD_PATHS = {  # the kernel's (batch, sequence length) on each path that runs it
-    "ssm_forward": (1, SSM_FWD_T),
-    "ssm_serve": (SERVE_SSM_BATCH, SERVE_SSM_PROMPT),  # the prefill
-    "ssm_train": (2, 4096),  # a microbatch of phase 13's training step
+HYBRID_ARCH = "zamba2-1.2b"
+SSD_PATHS = {  # the kernel's (arch, batch, sequence length) on each path that runs it
+    "ssm_forward": (SSM_ARCH, 1, SSM_FWD_T),
+    "ssm_serve": (SSM_ARCH, SERVE_SSM_BATCH, SERVE_SSM_PROMPT),  # the prefill
+    "ssm_train": (SSM_ARCH, 2, 4096),  # a microbatch of phase 13's training step
+    "hybrid_forward": (HYBRID_ARCH, 1, 32768),  # phase 18
+    "hybrid_serve": (HYBRID_ARCH, 8, 2048),  # phase 18's prefill
 }
 SSD_KERNEL_NAMES = ("ssd_diag_wgmma_kernel", "ssd_cumsum_kernel")
 
@@ -2164,7 +2237,6 @@ def phase_ssd(dev, report) -> dict:
     from repro_torch.testing import assert_close
 
     print(f"phase 8: SSD intra-chunk kernel vs plain version on the card ({SSD_TOL})")
-    cfg = C.get(SSM_ARCH).model
     errs = {}
 
     def check(name, args):
@@ -2187,7 +2259,8 @@ def phase_ssd(dev, report) -> dict:
             check("b={} nc={} q={} h={} p={} n={}".format(*shape) + f", G={g}"
                   + (", bf16 values" if bf16 else ""),
                   ssd_inputs(dev, 220 + i, *shape, groups=g, bf16=bf16))
-        for path, (b, t) in SSD_PATHS.items():
+        for path, (arch, b, t) in SSD_PATHS.items():
+            cfg = C.get(arch).model
             shape = ssd_path_shape(cfg, b, t)
             g = cfg.ssm.n_groups
             label = "{} (BC,Q,H,P,N) = ({},{},{},{},{}), G={}".format(
@@ -2914,6 +2987,535 @@ def train_breakdown(fn, kernel_names, backward_range) -> dict:
 # ---------------------------------------------------------------- main
 
 
+# ---------------------------------------------------------------- phases 16-20
+
+# Layers kept on one 80 GB card, at full width (None: all).  Reckoned from the
+# reference's spec trees: granite-34b 2.12 GB a layer (f32) and 2.42 GB
+# outside them, qwen1.5-32b 2.10 and 6.23, kimi-k2 34.15 (bf16, 384
+# experts) and 4.70, arctic 27.22 and 0.92; the rest fit whole.
+FAMILY_DEPTH = {
+    "granite-8b": None, "granite-34b": 16, "qwen1.5-32b": 16, "kimi-k2-1t-a32b": 1,
+    "arctic-480b": 2, "zamba2-1.2b": None, "whisper-tiny": None,
+    "llava-next-mistral-7b": None,
+}
+# (batch, text tokens) of each teacher-forced forward; llava's 704 text
+# tokens follow its 2880 patches, 3584 positions in all, a multiple of 128,
+# so that `_use_flash` holds.
+FAMILY_FWD = {
+    "granite-8b": (1, 4096), "granite-34b": (1, 4096), "qwen1.5-32b": (1, 4096),
+    "kimi-k2-1t-a32b": (1, 4096), "arctic-480b": (1, 4096), "zamba2-1.2b": (1, 32768),
+    "whisper-tiny": (4, 512), "llava-next-mistral-7b": (1, 704),
+}
+# (batch, text prompt, new tokens) served through `launch.serve`.
+FAMILY_SERVE = {
+    "granite-34b": (4, 512, 32), "kimi-k2-1t-a32b": (4, 512, 32), "arctic-480b": (4, 512, 32),
+    "zamba2-1.2b": (8, 2048, 64), "whisper-tiny": (8, 64, 64),
+    "llava-next-mistral-7b": (2, 320, 64),
+}
+FAMILY_PHASES = {  # phase number: (name, architectures)
+    16: ("dense", ("granite-8b", "granite-34b", "qwen1.5-32b")),
+    17: ("moe", ("kimi-k2-1t-a32b", "arctic-480b")),
+    18: ("hybrid", ("zamba2-1.2b",)),
+    19: ("encdec", ("whisper-tiny",)),
+    20: ("vlm", ("llava-next-mistral-7b",)),
+}
+
+
+def family_cfg(arch):
+    from repro_torch import configs as C
+
+    cfg = C.get(arch).model
+    depth = FAMILY_DEPTH[arch]
+    return cfg if depth is None else cfg.replace(num_layers=depth)
+
+
+def family_launches(cfg) -> dict:
+    """K2 and K3 launches of one teacher-forced forward: K2 once per causal
+    self-attention without a cache (a layer, or a hybrid's site), none
+    under chunked attention; K3 once per SSM layer."""
+    if cfg.family == "hybrid":
+        return {"flash": -(-cfg.num_layers // cfg.hybrid_attn_every), "ssd": cfg.num_layers}
+    flash = 0 if cfg.attention_impl == "chunked" else cfg.num_layers
+    return {"flash": flash, "ssd": 0}
+
+
+def family_batch(cfg, b, t, dev, seed=0):
+    """`make_batch`'s draw on the card: ``t`` text tokens after the VLM's
+    patches, an encoder-decoder's frames; no loss mask."""
+    import torch
+
+    from repro_torch.data.pipeline import make_batch
+
+    seq = t + (cfg.num_patch_tokens if cfg.family == "vlm" else 0)
+    return {k: torch.as_tensor(v, device=dev) for k, v in make_batch(cfg, b, seq, seed=seed).items()
+            if k != "loss_mask"}
+
+
+PLAIN_TILE = 1024  # the plain version's tiles inside a model: few launches, same function
+# At the reference's initializers most of these models are chaotic in
+# their logits: attention scores reach the hundreds (no qk-norm, and a 3-D
+# projection's fan-in is its head count), so one rounding step anywhere can
+# swing a near-one-hot softmax.  On the CPU, the reference's own float32
+# whisper-tiny forward (B=1, T=512) moves by 27 % RMS of its logits, its
+# argmax at 44 % of positions, when its frames move by one float32 ulp;
+# its bfloat16 forward lies 107 % RMS from its float32 one.  So each kernel
+# launch is held to its plain version on its own inputs (every launch, not
+# the first alone), and a forward's logits are held to the same model with
+# the kernels' plain versions in their place (`plain_routes`) within the
+# phase's limits or twice the model's noise floor (`held_limits`), the dense
+# attention route reported beside it: it rounds the scores to bfloat16 (a
+# step of 2 at 256) before the softmax, where the kernel keeps them in
+# float32.  On the CPU, on one arctic-like layer's own q, k, v (d_model
+# 512, T 1024), the dense route lies up to 29.9 from the float32 scores'
+# result (outputs up to 78).  Arctic runs no kernel: its `_chunked_sdpa`
+# rounds the same bfloat16 scores as the dense route, and each output, a
+# convex combination of v's rows, moves by up to about 2^-8 of the largest
+# |v| where the two routes round the weights (after normalizing, or per
+# chunk before it); each call is held to `_sdpa` on its own q, k, v within
+# 2^-7 of the largest output (the CPU case: 0.25 at 78), and the logits to
+# the dense route, within the same limits.
+CHUNKED_ATOL_REL = 2.0**-7
+FLASH_ATOL_REL_V = 2.0**-9
+
+
+class plain_routes:
+    """The same model with each kernel replaced by its plain PyTorch version
+    (``route="plain"``): attention through `flash_attention_plain` (the
+    kernel's arithmetic: float32 scores and probabilities; in 1024 x 1024
+    tiles, on which the result depends only through float32 rounding) and
+    the SSM layers through `ssm_apply`'s einsum route (the reference's).
+    With ``route="dense"`` every attention takes `_sdpa` instead (scores
+    and probabilities rounded to the compute dtype, as the reference's
+    dense route), except at T >= 16384, where its score matrix would take
+    137 GB and `_chunked_sdpa` (2048-key chunks) takes its place."""
+
+    def __init__(self, model, t, route="plain"):
+        self.model, self.t, self.route = model, t, route
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention.ops import flash_attention_plain
+        from repro_torch.models import layers as L
+        from repro_torch.models import ssm as S
+
+        self.saved = (self.model.cfg, L.flash_attention, S.ssm_apply)
+        orig = S.ssm_apply
+        S.ssm_apply = lambda *a, use_kernel=False, **kw: orig(*a, **kw)
+        if self.route == "plain":
+            L.flash_attention = lambda q, k, v, causal=True: flash_attention_plain(
+                q, k, v, causal=causal, block_q=PLAIN_TILE, block_k=PLAIN_TILE)
+        elif self.t >= 16384:
+            self.model.cfg = self.model.cfg.replace(attention_impl="chunked", attention_chunk=2048)
+        else:
+            self.model.cfg = self.model.cfg.replace(attention_impl="dense")
+        return self.model
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers as L
+        from repro_torch.models import ssm as S
+
+        self.model.cfg, L.flash_attention, S.ssm_apply = self.saved
+
+
+class pinned_routing:
+    """Replay, in call order, the discrete MoE decisions of a recorded run
+    (``routes``, `moe_route`'s results: the experts picked and the kept
+    slots), with the gates and aux loss from this run's own probabilities,
+    so that a comparison of two runs measures their arithmetic and not a
+    pick that a near-tie flipped.  The list it yields counts, per MoE
+    layer, the picks this run would have made otherwise."""
+
+    def __init__(self, routes):
+        self.routes, self.flips = list(routes), []
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+
+        self.orig = L.moe_route
+        recorded = iter(self.routes)
+
+        def replay(router, moe, xf):
+            own, rec = self.orig(router, moe, xf), next(recorded)
+            self.flips.append(int((own["expert_ids"] != rec["expert_ids"]).sum()))
+            gates = own["probs"].gather(1, rec["expert_ids"])
+            gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+            return dict(own, expert_ids=rec["expert_ids"], keep=rec["keep"], slot=rec["slot"],
+                        gates=gates)
+
+        if self.routes:
+            L.moe_route = replay
+        return self.flips
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers as L
+
+        L.moe_route = self.orig
+
+
+def logits_diff(logits, ref) -> dict:
+    diff = logits - ref
+    out = {"rms_rel": float(diff.square().mean().sqrt() / ref.square().mean().sqrt()),
+           "max_abs": float(diff.abs().max()),
+           "argmax_agree": float((logits.argmax(-1) == ref.argmax(-1)).float().mean())}
+    del diff
+    return out
+
+
+def close_on_device(ref, got, *, rtol: float, atol: float, what: str) -> float:
+    """`testing.assert_close`'s rule, ``|got - ref| <= atol + rtol * |ref|``,
+    evaluated on the card (no host copy of a launch's output); returns
+    max |got - ref|."""
+    import torch
+
+    ref, got = ref.float(), got.float()
+    diff = (got - ref).abs()
+    bad = diff > atol + rtol * ref.abs()
+    if bool(bad.any()):
+        i = tuple(int(j) for j in torch.nonzero(bad)[0])
+        raise AssertionError(f"{what}: {int(bad.sum())} entries outside rtol={rtol} atol={atol}; "
+                             f"first at {i}: got {float(got[i])!r}, ref {float(ref[i])!r}")
+    return float(diff.max())
+
+
+class nudged_inputs:
+    """Scale every token embedding by 1 + 2^-8 (about one bfloat16 step):
+    the perturbation whose effect on the logits is a model's noise floor."""
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+
+        self.orig = orig = L.embed_apply
+
+        def nudged(*a):
+            x = orig(*a)
+            return (x.float() * (1 + 2.0**-8)).to(x.dtype)
+
+        L.embed_apply = nudged
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers as L
+
+        L.embed_apply = self.orig
+
+
+def held_limits(limits, floor) -> tuple:
+    """The limits of a logits comparison: the stated ones, or twice the
+    model's own noise floor where that is wider (a chaotic model)."""
+    return max(limits[0], 2 * floor["rms_rel"]), max(limits[1], 2 * floor["max_abs"])
+
+
+def family_forward(dev, arch, phase) -> dict:
+    """One architecture's teacher-forced forward at full width (depth as
+    `FAMILY_DEPTH`): its kernels counted, every launch held to its plain
+    version on its own inputs, timed, profiled, and its logits held to the
+    same model with the kernels' plain versions in their place
+    (`plain_routes`; arctic, which runs none, to its dense route) within
+    `held_limits`: the phase's limits, or twice the model's noise floor
+    (the same route's logits with its inputs nudged by a bfloat16 step)."""
+    import torch
+
+    from repro_torch import configs as C
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
+    from repro_torch.kernels.ssd.kernel import ssd_diag_cuda
+    from repro_torch.kernels.ssd.ops import ssd_diag_chunk, ssd_diag_plain
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+    from repro_torch.models.model import Model
+
+    cfg = family_cfg(arch)
+    b, t = FAMILY_FWD[arch]
+    full = C.get(arch).model.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != model.total_params():
+        raise AssertionError(f"{n_params} parameters, the spec says {model.total_params()}")
+    batch = family_batch(cfg, b, t, dev)
+    positions = t + (cfg.num_patch_tokens if cfg.family == "vlm" else 0)
+    print(f"  {arch}: {cfg.family}, {cfg.num_layers} of {full} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, vocab {cfg.vocab_size}, "
+          f"{cfg.param_dtype} params ({n_params} drawn on the card in {init_s:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB), {cfg.compute_dtype} compute, attention "
+          f"{cfg.attention_impl}; forward at B={b}, {positions} positions")
+    want = family_launches(cfg)
+    errs = {"flash": [], "flash_rel_v": [], "ssd": [], "chunked": []}
+    drops, routes = [], []  # the MoE layers' drops and routing in the counted forward
+
+    # Every launch held to its plain version on its own inputs, as it happens
+    # (nothing kept).  Outputs are convex combinations of V's rows, so the
+    # absolute limit scales with the largest |v|: 2^-9 of it, half a
+    # bfloat16 step at that size, beside FA_TOL's 2^-7 of each output.
+    def checked_flash(q, k, v, causal=True, *rest):
+        out = flash_attention(q, k, v, causal, *rest)
+        plain = flash_attention_plain(q, k, v, causal=causal, block_q=PLAIN_TILE,
+                                      block_k=PLAIN_TILE)
+        vmax = float(v.float().abs().max())
+        err = close_on_device(plain, out, rtol=FA_TOL["bfloat16"]["rtol"],
+                              atol=FLASH_ATOL_REL_V * vmax,
+                              what=f"{arch} flash launch {len(errs['flash'])} vs plain")
+        errs["flash"].append(err)
+        errs["flash_rel_v"].append(err / vmax)
+        return out
+
+    def checked_ssd(*args):
+        out = ssd_diag_chunk(*args)
+        errs["ssd"].append(close_on_device(ssd_diag_plain(*args), out, **SSD_TOL,
+                                           what=f"{arch} SSD launch {len(errs['ssd'])}"))
+        return out
+
+    chunked = L._chunked_sdpa
+
+    def checked_chunked(q, k, v, **kw):
+        out = chunked(q, k, v, **kw)
+        dense = L._sdpa(q, k, v, **{n: w for n, w in kw.items() if n != "chunk"})
+        atol = CHUNKED_ATOL_REL * float(dense.float().abs().max())
+        errs["chunked"].append(close_on_device(dense, out, rtol=0.0, atol=atol,
+                                               what=f"{arch} chunked vs dense"))
+        return out
+
+    route = L.moe_route
+
+    def recorded_route(*args):
+        r = route(*args)
+        drops.append(int((~r["keep"]).sum()))
+        routes.append(r)
+        return r
+
+    with torch.inference_mode():
+        L.flash_attention, S.ssd_diag_chunk, L.moe_route = checked_flash, checked_ssd, recorded_route
+        L._chunked_sdpa = checked_chunked
+        try:
+            reset_flash_counts(flash_attention_cuda)
+            ssd_diag_cuda.launches = 0
+            logits, aux = model.forward(batch)
+            torch.cuda.synchronize()
+            counts = {"flash": flash_counts(flash_attention_cuda), "ssd": ssd_diag_cuda.launches}
+        finally:
+            L.flash_attention, S.ssd_diag_chunk, L.moe_route = flash_attention, ssd_diag_chunk, route
+            L._chunked_sdpa = chunked
+        peak = torch.cuda.max_memory_allocated()
+        print(f"    kernel launches in one forward: flash {counts['flash']}, SSD {counts['ssd']} "
+              f"(want flash {want['flash']} on the tensor cores, SSD {want['ssd']}); peak "
+              f"allocated {peak / 1e9:.2f} GB")
+        if (counts["flash"] != {"all": want["flash"], "tensor_core": want["flash"], "cuda_core": 0}
+                or counts["ssd"] != want["ssd"]):
+            raise AssertionError(f"{arch}: kernels launched {counts}, want {want}")
+        if tuple(logits.shape) != (b, t, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{arch}: forward logits of shape {tuple(logits.shape)} not finite")
+        if errs["flash"]:
+            print(f"    every K2 launch vs its plain version on its own q, k, v: max |diff| "
+                  f"{max(errs['flash']):.3e}, at most {max(errs['flash_rel_v']):.3e} of the "
+                  f"launch's largest |v| (limit {FLASH_ATOL_REL_V}, with rtol "
+                  f"{FA_TOL['bfloat16']['rtol']})")
+        if errs["ssd"]:
+            print(f"    every K3 launch vs its plain version on its own inputs: max |diff| "
+                  f"{max(errs['ssd']):.3e} ({SSD_TOL})")
+        if errs["chunked"]:
+            print(f"    every `_chunked_sdpa` call vs `_sdpa` on its own q, k, v: max |diff| "
+                  f"{max(errs['chunked']):.3e} (limit {CHUNKED_ATOL_REL} of the largest output)")
+        if cfg.family == "moe":
+            routed = b * t * cfg.moe.top_k
+            print(f"    MoE: aux loss {float(aux):.6f}; the capacity dropped {drops} of {routed} "
+                  f"(token, expert) pairs per layer ({sum(drops) / (routed * len(drops)):.4f})")
+        t0 = time.perf_counter()
+        model.forward(batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        fwd_ms = cuda_time_ms(lambda: model.forward(batch), reps=2, warmup=0)
+        names = FLASH_KERNEL_NAMES + (SSD_KERNEL_NAMES if want["ssd"] else ())
+        prof = forward_breakdown(lambda: model.forward(batch), names)
+        held = "plain" if want["flash"] or want["ssd"] else "dense"
+        cmps = {}
+        for name in ("plain", "dense", "floor") if held == "plain" else ("dense", "floor"):
+            with plain_routes(model, positions, held if name == "floor" else name) as ref_model, \
+                    pinned_routing(routes) as flips:
+                if name == "floor":
+                    with nudged_inputs():
+                        other, _ = ref_model.forward(batch)
+                    cmps[name] = logits_diff(other, ref_logits)
+                else:
+                    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                    ev[0].record()
+                    other, other_aux = ref_model.forward(batch)
+                    ev[1].record()
+                    torch.cuda.synchronize()
+                    cmps[name] = dict(logits_diff(logits, other), aux=float(other_aux),
+                                      moe_picks_differing=sum(flips), ms=ev[0].elapsed_time(ev[1]))
+                if name == held:
+                    ref_logits = other
+                else:
+                    del other
+        del logits, ref_logits
+    base = ((SSM_FORWARD_RMS_REL, SSM_FORWARD_MAX_ABS) if want["ssd"]
+            else (FORWARD_RMS_REL, FORWARD_MAX_ABS))
+    limits = held_limits(base, cmps["floor"])
+    ref_ms = cmps["dense"]["ms"]
+    print(f"    forward {fwd_ms:.1f} ms by CUDA events (median of 2), wall {wall:.1f} ms, dense "
+          f"attention route {ref_ms:.1f} ms (one call); aux {float(aux):.6f}")
+    for name, c in cmps.items():
+        if name == "floor":
+            print(f"    noise floor: the {held} route with its inputs nudged by a bfloat16 step "
+                  f"vs itself: RMS {c['rms_rel']:.3e}, max |diff| {c['max_abs']:.4f}, argmax "
+                  f"agrees at {c['argmax_agree']:.4f}")
+            continue
+        picks = (f", MoE routing pinned to the forward's ({c['moe_picks_differing']} of its "
+                 f"picks would differ)" if routes else "")
+        print(f"    logits vs the {name} route's: RMS {c['rms_rel']:.3e} of theirs, max |diff| "
+              f"{c['max_abs']:.4f}, argmax agrees at {c['argmax_agree']:.4f}, aux "
+              f"{c['aux']:.6f}{picks}" + (f" (held: limits {limits[0]:.4g} RMS, {limits[1]:.4g} "
+                                          f"max)" if name == held else " (reported)"))
+    print(f"    profiled forward: wall {prof['wall_ms']:.1f} ms, device busy "
+          f"{prof['device_busy_ms']:.1f} ms, K2/K3 {prof['kernel_ms']:.2f} ms "
+          f"({prof['kernel_share']:.3f} of device time), idle share {prof['idle_share']:.3f}, "
+          f"{prof['device_kernels']:.0f} device kernels")
+    for name, ms in prof["top_kernels_ms"].items():
+        print(f"      device {ms:.3f} ms  {name}")
+    if cmps[held]["rms_rel"] > limits[0] or cmps[held]["max_abs"] > limits[1]:
+        raise AssertionError(f"{arch}: the forward and its {held} route disagree beyond the "
+                             f"limits")
+    del model
+    torch.cuda.empty_cache()
+    return {"arch": arch, "layers": cfg.num_layers, "params": n_params, "init_s": init_s,
+            "launches": counts, "wall_ms": wall, "events_ms": fwd_ms, "dense_route_ms": ref_ms,
+            "peak_bytes": int(peak), "kernel_errs": {k: max(v) if v else None
+                                                     for k, v in errs.items()},
+            "moe_drops": drops, "aux": float(aux), "routes": cmps, "held": held,
+            "limits": limits, "breakdown": prof}
+
+
+def family_serve(dev, arch) -> dict:
+    """Serve one architecture through `launch.serve` (depth as
+    `FAMILY_DEPTH`): no K2 launch (prefill and decode attend through the
+    cache), K3 once per SSM layer of the prefill and never in a decode
+    step.  Where a forward routes as the served path does (every family
+    but the MoE, whose capacity depends on how many tokens are routed
+    together), the served path's logits over the served tokens are held to
+    the teacher-forced forward's, and its tokens to the forward's argmax
+    under the tie rule."""
+    import torch
+
+    from repro_torch.kernels.ei_argmax.kernel import ei_argmax_cuda
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.ssd.kernel import ssd_diag_cuda
+    from repro_torch.launch import serve
+    from repro_torch.testing import compare_token_traces
+
+    nb, prompt, new = FAMILY_SERVE[arch]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = serve.build_model(arch, seed=0, device=dev, num_layers=FAMILY_DEPTH[arch])
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    patches = cfg.num_patch_tokens if cfg.family == "vlm" else 0
+    seq = prompt + patches
+    max_len = seq + new
+    print(f"  serving {arch} ({cfg.num_layers} layers) through repro_torch.launch.serve: batch "
+          f"{nb}, {patches} patches + {prompt} Zipf prompt tokens, {new} greedy new tokens; "
+          f"built and cast in {time.perf_counter() - t0:.2f} s "
+          f"({torch.cuda.memory_allocated() / 1e9:.2f} GB resident)")
+    loop = serve.serve_loop(model, nb, max_len)
+    batch = serve.requests(model, nb, seq, seed=0)
+    loop.generate(batch, 2)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_cuda.launches = ssd_diag_cuda.launches = ei_argmax_cuda.launches = 0
+    out = loop.generate(batch, new, echo_metrics=True)
+    launches = {"flash_attention": flash_attention_cuda.launches,
+                "ssd_diag": ssd_diag_cuda.launches, "ei_argmax": ei_argmax_cuda.launches}
+    peak = torch.cuda.max_memory_allocated()
+    m, tokens = out["metrics"], out["tokens"]
+    steps = m["decoded"] - 1
+    step_ms = m["decode_s"] * 1e3 / max(steps, 1)
+    want = {"flash_attention": 0, "ei_argmax": 0,
+            "ssd_diag": cfg.num_layers if cfg.family == "hybrid" else 0}
+    print(f"    prefill {m['prefill_s'] * 1e3:.1f} ms, decode {step_ms:.2f} ms per step ({steps} "
+          f"steps), {m['tokens_per_s']:.1f} tokens/s; peak allocated {peak / 1e9:.2f} GB; "
+          f"kernel launches {launches} (want {want})")
+    if launches != want:
+        raise AssertionError(f"{arch}: serving launched {launches}, want {want}")
+    if tokens.shape != (nb, new):
+        raise AssertionError(f"{arch}: served tokens of shape {tokens.shape}")
+    result = {"arch": arch, "layers": cfg.num_layers, "prefill_ms": m["prefill_s"] * 1e3,
+              "decode_ms_per_step": step_ms, "tokens_per_s": m["tokens_per_s"],
+              "decoded": m["decoded"], "peak_bytes": int(peak), "launches": launches}
+    if cfg.family != "moe":
+        stubs = {k: v for k, v in batch.items() if k != "tokens"}
+        with torch.inference_mode():
+            served = torch.as_tensor(tokens[:, :-1], device=dev).long()
+            text = dict(stubs, tokens=torch.cat([batch["tokens"].long(), served], 1))
+            logits = model.forward(text)[0][:, prompt - 1:].clone()
+            with nudged_inputs():
+                floor = logits_diff(model.forward(text)[0][:, prompt - 1:], logits)
+            ref_tokens, ref_logits = logits.argmax(-1).cpu().numpy(), logits.cpu().numpy()
+            cache = model.init_cache(nb, max_len)
+            path = [model.prefill(batch, cache)[0]]
+            for i in range(new - 1):
+                path.append(model.decode_step(cache, text["tokens"][:, prompt + i:prompt + i + 1],
+                                              seq + i)[0])
+            cmp = logits_diff(torch.cat(path, 1), logits)
+            del logits, path
+        base = ((SSM_FORWARD_RMS_REL, SSM_FORWARD_MAX_ABS) if cfg.family == "hybrid"
+                else (FORWARD_RMS_REL, FORWARD_MAX_ABS))
+        limits = held_limits(base, floor)
+        chaotic = limits != base
+        print(f"    served path's logits over the served tokens vs the forward's: RMS "
+              f"{cmp['rms_rel']:.3e} of theirs, max |diff| {cmp['max_abs']:.4f} (limits "
+              f"{limits[0]:.4g}, {limits[1]:.4g}); the forward's noise floor (inputs nudged by a "
+              f"bfloat16 step): RMS {floor['rms_rel']:.3e}, max |diff| {floor['max_abs']:.4f}")
+        if cmp["rms_rel"] > limits[0] or cmp["max_abs"] > limits[1]:
+            raise AssertionError(f"{arch}: served and forward logits disagree beyond the limits")
+        equal = (ref_tokens == tokens).cumprod(1).sum(1)  # steps equal before a first difference
+        if chaotic:  # one rounding step moves the argmax: tokens are reported, not held
+            print(f"    served tokens vs the forward's argmax: steps equal before a first "
+                  f"difference, by row: {equal.tolist()} of {new} (reported: the floor is above "
+                  f"the limits)")
+            ties = None
+        else:
+            ties = compare_token_traces(ref_tokens, tokens, ref_logits, atol=SERVE_TIE_ATOL)
+            print(f"    served tokens vs the forward's argmax: {ties.matched} of {nb} rows match "
+                  f"in full, {len(ties.ties)} end at a certified tie (within {SERVE_TIE_ATOL})")
+            for b, n, detail in ties.ties:
+                print(f"      tie: row {b} step {n}: {detail}")
+        result.update(logits=cmp, floor=floor, limits=limits, steps_equal=equal.tolist(),
+                      full_matches=None if ties is None else ties.matched,
+                      ties=None if ties is None else [list(x) for x in ties.ties])
+    prof = decode_breakdown(model, batch, steps=4, max_len=max_len)
+    print(f"    profiled decode step: wall {prof['wall_ms']:.2f} ms, device busy "
+          f"{prof['device_busy_ms']:.2f} ms (idle share {prof['idle_share']:.3f}), "
+          f"{prof['device_kernels']} kernels per step")
+    result["decode_breakdown"] = prof
+    del model, loop, batch
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_family(dev, report, phase) -> dict:
+    """Phases 16-20: each architecture's forward, then its serving (where
+    `FAMILY_SERVE` lists it); returns each forward's launches by path."""
+    import torch
+
+    name, archs = FAMILY_PHASES[phase]
+    print(f"phase {phase}: the {name} family at full width: {', '.join(archs)}")
+    t_phase = time.perf_counter()
+    out = {"forward": {}, "serve": {}}
+    for arch in archs:
+        out["forward"][arch] = family_forward(dev, arch, phase)
+    for arch in archs:
+        if arch in FAMILY_SERVE:
+            out["serve"][arch] = family_serve(dev, arch)
+    out["seconds"] = time.perf_counter() - t_phase
+    out["peak_bytes"] = max(int(r["peak_bytes"]) for part in ("forward", "serve")
+                            for r in out[part].values())
+    print(f"  phase {phase} wall time {out['seconds']:.1f} s, peak allocated "
+          f"{out['peak_bytes'] / 1e9:.2f} GB")
+    report[f"family_{name}"] = out
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None, help="also write the report JSON here")
@@ -2973,6 +3575,7 @@ def main(argv=None) -> int:
 
     failed = []
     times, fa_times, ssd_times, rn, fleet, service, launches = None, None, None, None, None, None, {}
+    families = {name: None for name, _ in FAMILY_PHASES.values()}
     seq = {}  # phase 2's traces, which phase 14 holds the fleet against
     held = {}  # phase 14's catalog fleet and K1 times, which phase 15 holds the service to
     for name, phase in (
@@ -2991,6 +3594,7 @@ def main(argv=None) -> int:
         ("rmsnorm", lambda: phase_rmsnorm(dev, report)),
         ("train", lambda: phase_training(dev, report, "train")),
         ("ssm_train", lambda: phase_training(dev, report, "ssm_train")),
+        *((FAMILY_PHASES[n][0], lambda n=n: phase_family(dev, report, n)) for n in FAMILY_PHASES),
     ):
         try:
             out = phase()
@@ -3013,6 +3617,8 @@ def main(argv=None) -> int:
             fleet = out
         elif name == "service":
             service = out
+        elif name in families:
+            families[name] = out
         elif name != "serve":
             launches[name] = out
     if args.out is not None:
@@ -3106,6 +3712,30 @@ def main(argv=None) -> int:
         ("flash_attention", "flash_attention.cu", "op_float32",
          fa_times["cuda_core"], fa_times["cuda_core"]["op_launches"]),
     ))
+    hybrid = families["hybrid"]
+    ssd_launches = dict(launches, hybrid_forward=hybrid["forward"][HYBRID_ARCH]["launches"]["ssd"],
+                        hybrid_serve=hybrid["serve"][HYBRID_ARCH]["launches"]["ssd_diag"])
+    # K2's tensor-core kernel on the other families' forwards (phases 16-20),
+    # timed in phase 5 at each forward's shape (granite-8b's is Qwen3-8B's).
+    fam_fwd = {arch: r for out in families.values() for arch, r in out["forward"].items()}
+    kernels.extend({
+        "name": "flash_attention_wgmma",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_wgmma.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:113",
+        "path": f"{arch}_forward",
+        "shape": t["shape"],
+        "launches": fam_fwd[arch]["launches"]["flash"]["tensor_core"],
+        "max_abs_err": t["max_abs_err"],
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "device_ms": t["device_ms"],
+        "plain_device_ms": t["plain_device_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],  # scaled_dot_product_attention
+        "library_device_ms": t["library_device_ms"],
+    } for arch, t in [("granite-8b", fa_times["tensor_core"]), *fa_times["shapes"].items()])
     kernels.extend({
         "name": "ssd_diag",
         "route": "cuda",
@@ -3113,7 +3743,7 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/ssd/ssd.py:59",
         "path": path,
         "shape": t["shape"],
-        "launches": launches[path],
+        "launches": ssd_launches[path],
         "max_abs_err": t["max_abs_err"],
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],

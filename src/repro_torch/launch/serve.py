@@ -1,7 +1,8 @@
 """Serving from the command line (port of `repro/launch/serve.py`).
 
-    python -m repro_torch.launch.serve --arch qwen3-8b [--smoke] [--device cpu]
-    python -m repro_torch.launch.serve --arch mamba2-370m [--smoke] [--device cpu]
+    python -m repro_torch.launch.serve --arch <id> [--smoke] [--device cpu]
+
+for any of the ten architectures of `repro_torch.configs`.
 
 Builds the model with random weights drawn from ``--seed`` on the device
 (the card unless ``--device cpu``), then prefills a batch of Zipf prompts
@@ -9,8 +10,11 @@ from `data.make_batch` and decodes greedily, reporting prefill latency and
 decode throughput.  For serving, the weights the model reads only in the
 compute dtype are cast to it once, in place (`Model.cast_weights_`): the
 same numbers as a cast at every use, and half the memory of float32.
-``--max-len`` sizes the dense family's KV cache; an SSM's state is O(1) in
-sequence length.
+``--max-len`` sizes the KV caches (an SSM's state is O(1) in sequence
+length).  As in the reference, a VLM request's sequence is its
+``--prompt-len`` text tokens after the config's ``num_patch_tokens``
+patches, and an encoder-decoder request carries the encoder's frames; both
+stubs come from `make_batch`.
 """
 
 from __future__ import annotations
@@ -30,12 +34,16 @@ from repro_torch.runtime.steps import make_serve_steps
 __all__ = ["build_model", "main", "requests", "serve_loop"]
 
 
-def build_model(arch: str, *, smoke: bool = False, seed: int = 0,
-                device: DeviceLike = None) -> Model:
+def build_model(arch: str, *, smoke: bool = False, seed: int = 0, device: DeviceLike = None,
+                num_layers: Optional[int] = None) -> Model:
     """The architecture's model with random weights from ``seed``, drawn on
-    ``device``, cast for serving (`Model.cast_weights_`)."""
-    spec = C.smoke(arch) if smoke else C.get(arch)
-    return Model(spec.model, device=device, seed=seed).cast_weights_()
+    ``device``, cast for serving (`Model.cast_weights_`).  ``num_layers``
+    keeps the first that many layers (full width, reduced depth), for a
+    model that does not fit the device whole."""
+    cfg = (C.smoke(arch) if smoke else C.get(arch)).model
+    if num_layers is not None:
+        cfg = cfg.replace(num_layers=num_layers)
+    return Model(cfg, device=device, seed=seed).cast_weights_()
 
 
 def serve_loop(model: Model, batch: int, max_len: int, *, eos_id: int = -1) -> ServeLoop:
@@ -45,10 +53,14 @@ def serve_loop(model: Model, batch: int, max_len: int, *, eos_id: int = -1) -> S
                      init_cache=lambda: model.init_cache(batch, max_len), eos_id=eos_id)
 
 
-def requests(model: Model, batch: int, prompt_len: int, *, seed: int = 0) -> Dict[str, torch.Tensor]:
-    """A batch of Zipf prompts from `make_batch`, on the model's device."""
-    req = make_batch(model.cfg, batch, prompt_len, seed=seed)
-    return {"tokens": torch.as_tensor(req["tokens"], device=model.device)}
+def requests(model: Model, batch: int, seq_len: int, *, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """A batch of Zipf prompts from `make_batch`, on the model's device,
+    with its modality stubs (a VLM's ``patches``, which take the first
+    ``num_patch_tokens`` of the ``seq_len`` positions; an encoder-decoder's
+    ``frames``)."""
+    req = make_batch(model.cfg, batch, seq_len, seed=seed)
+    return {k: torch.as_tensor(v, device=model.device) for k, v in req.items()
+            if k != "loss_mask"}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -65,7 +77,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     model = build_model(args.arch, smoke=args.smoke, seed=args.seed, device=args.device)
     loop = serve_loop(model, args.batch, args.max_len)
-    out = loop.generate(requests(model, args.batch, args.prompt_len, seed=args.seed),
+    seq = args.prompt_len
+    if model.cfg.family == "vlm":
+        seq += model.cfg.num_patch_tokens
+    out = loop.generate(requests(model, args.batch, seq, seed=args.seed),
                         args.max_new_tokens, echo_metrics=True)
     m = out["metrics"]
     print(f"[serve] device={model.device} batch={args.batch} prompt={args.prompt_len} "

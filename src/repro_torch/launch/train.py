@@ -7,9 +7,12 @@ Runs the fault-tolerant training loop (checkpoint/restart, preemption
 handling, straggler monitor) on the architecture's model, with random
 weights drawn from ``--seed`` on the device (the card unless ``--device
 cpu``) and the deterministic synthetic data pipeline.  ``--smoke`` takes
-the reduced same-family config.  The reference's ``--mesh`` runs the full
-config across a production mesh; the port has one device, and a mesh other
-than ``none`` raises (ROADMAP Queue 1 item 17).
+the reduced same-family config.  The dense and SSM families train here;
+the moe, hybrid, encdec and vlm families serve but do not train yet and
+raise (ROADMAP Queue 1 item 11b: the MoE configs' Adafactor over the
+stacked tree, the aux-loss gradients).  The reference's ``--mesh`` runs
+the full config across a production mesh; the port has one device, and a
+mesh other than ``none`` raises (ROADMAP Queue 1 item 17).
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ from repro_torch.runtime.loop import PreemptionGuard, TrainLoop
 from repro_torch.runtime.steps import init_train_state, make_train_step
 
 __all__ = ["main"]
+
+_TRAINED_FAMILIES = ("dense", "ssm")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
@@ -49,6 +54,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
             f"--mesh {args.mesh}: sharded training is not ported yet (ROADMAP Queue 1 item 17)")
 
     spec = C.smoke(args.arch) if args.smoke else C.get(args.arch)
+    if spec.model.family not in _TRAINED_FAMILIES:
+        raise NotImplementedError(
+            f"training the {spec.model.family} family ({args.arch}) is not ported yet "
+            f"(ROADMAP Queue 1 item 11b)")
     ex = spec.exec
     if args.learning_rate is not None:
         ex = ex.replace(learning_rate=args.learning_rate)

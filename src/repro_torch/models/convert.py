@@ -1,14 +1,19 @@
 """Move the reference's parameter values into the port (`params_from_jax`).
 
-The reference keeps a nested dict with every block parameter stacked along
-a leading "layers" axis; the port keeps one dict per layer.  Values are
-taken as they are (numpy arrays, or anything `numpy.asarray` reads, such as
-JAX arrays); bfloat16 arrays go through float32, which holds them exactly.
+The reference keeps a nested dict with every stack of blocks stacked along
+a leading "layers" axis: ``layers`` (the decoder, or the SSM family's
+layers), ``encoder.layers`` (encdec) and ``hybrid.mamba`` (hybrid).  The
+port keeps one dict per layer.  The rest (``embed``, ``pos_table``,
+``final_norm``, ``encoder.final_norm``, the hybrid's one ``shared_attn``
+block) is taken as it is.  The MoE's expert leaves keep their expert axis
+after the layer axis.  Values are taken as they are (numpy arrays, or
+anything `numpy.asarray` reads, such as JAX arrays); bfloat16 arrays go
+through float32, which holds them exactly.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -26,19 +31,30 @@ def _tensor(a: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
-def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
-    """The port's parameter tree (CPU tensors) for the reference's ``tree``
-    of a dense or SSM model: ``embed`` and ``final_norm`` as they are,
-    ``layers`` (``attn``/``mlp`` blocks, or ``norm``/``ssm``) split into
-    ``cfg.num_layers`` per-layer dicts.  `models.model.Model` checks the
-    names and shapes when it takes the tree."""
-    n = cfg.num_layers
-    stacked = tree_map(_tensor, tree["layers"])
+def _unstack(tree: Any, n: int, where: str) -> List[Any]:
+    stacked = tree_map(_tensor, tree)
     for name, leaf in leaves(stacked):
         if leaf.shape[0] != n:
-            raise ValueError(f"layers.{name}: stacked axis {leaf.shape[0]} != num_layers {n}")
-    return {
-        "embed": tree_map(_tensor, tree["embed"]),
-        "layers": [tree_map(lambda x, i=i: x[i].clone(), stacked) for i in range(n)],
-        "final_norm": tree_map(_tensor, tree["final_norm"]),
-    }
+            raise ValueError(f"{where}.{name}: stacked axis {leaf.shape[0]} != {n} layers")
+    return [tree_map(lambda x, i=i: x[i].clone(), stacked) for i in range(n)]
+
+
+def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """The port's parameter tree (CPU tensors) for the reference's ``tree``
+    of a model of any family: each stacked group split into its per-layer
+    dicts, everything else as it is.  `models.model.Model` checks the names
+    and shapes when it takes the tree."""
+    out: Dict[str, Any] = {}
+    for group, value in tree.items():
+        if group == "layers":
+            out[group] = _unstack(value, cfg.num_layers, group)
+        elif group == "encoder":
+            out[group] = {"layers": _unstack(value["layers"], cfg.encoder.num_layers,
+                                             "encoder.layers"),
+                          "final_norm": tree_map(_tensor, value["final_norm"])}
+        elif group == "hybrid":
+            out[group] = {"mamba": _unstack(value["mamba"], cfg.num_layers, "hybrid.mamba"),
+                          "shared_attn": tree_map(_tensor, value["shared_attn"])}
+        else:
+            out[group] = tree_map(_tensor, value)
+    return out

@@ -3,16 +3,21 @@
 Each layer has ``<layer>_specs(cfg) -> {name: TensorSpec}`` and a
 functional ``<layer>_apply(p, cfg, x, ...)`` over a dict of tensors, in the
 reference's layouts: activations (B,T,d), q (B,T,H,hd), k and v
-(B,S,KV,hd), ``wq`` (d,H,hd), ``wo`` (H,hd,d), caches (B,max_len,KV,hd).
-Every cast to the compute dtype and back to float32 sits where the
-reference puts it, so bfloat16 rounds at the same places.
+(B,S,KV,hd), ``wq`` (d,H,hd), ``wo`` (H,hd,d), caches (B,max_len,KV,hd),
+expert weights (E,d,f).  Every cast to the compute dtype and back to
+float32 sits where the reference puts it, so bfloat16 rounds at the same
+places.
 
 The flash-attention kernel runs where the reference runs its Pallas
 kernel: causal self-attention without a cache (the teacher-forced
-forward), when `_use_flash` says so.  Prefill and decode go through
-`_sdpa`.  The reference's `shard_activation` constraints have no
-counterpart on one device.  Not ported yet: the MoE layer and the chunked
-(scan over key chunks) attention, ROADMAP Queue 1 item 11; both raise.
+forward), when `_use_flash` says so.  Prefill, decode, bidirectional and
+cross-attention go through `_sdpa`, or `_chunked_sdpa` under
+``attention_impl="chunked"``; the MoE's routing and expert products are
+plain torch ops, as the reference computes them outside any kernel.  The
+MoE takes the reference's local scatter/gather dispatch; its
+expert-parallel dispatch comes with ROADMAP Queue 1 item 17.  The
+reference's `shard_activation` constraints have no counterpart on one
+device.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.models.spec import TensorSpec
 
 __all__ = [
@@ -37,6 +42,8 @@ __all__ = [
     "mlp_apply",
     "mlp_specs",
     "moe_apply",
+    "moe_route",
+    "moe_specs",
     "norm_apply",
     "norm_specs",
     "rope_tables",
@@ -102,8 +109,10 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 # ---------------------------------------------------------------------------
 
 
-def attn_specs(cfg: ModelConfig) -> Dict[str, TensorSpec]:
-    """Projection parameters for one self-attention block."""
+def attn_specs(cfg: ModelConfig, *, cross: bool = False) -> Dict[str, TensorSpec]:
+    """Projection parameters for one attention block; ``cross=True`` is a
+    cross-attention block (whisper's decoder), whose K/V projections read
+    the encoder's output, without qk-norm."""
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     pd = cfg.pdtype
     specs = {
@@ -120,7 +129,7 @@ def attn_specs(cfg: ModelConfig) -> Dict[str, TensorSpec]:
         specs["bv"] = TensorSpec((kv, hd), pd, ("kv_heads", "head_dim"))
     if cfg.use_bias:
         specs["bo"] = TensorSpec((d,), pd, ("embed",))
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         specs["q_norm"] = TensorSpec((hd,), pd, ("head_dim",), init="ones")
         specs["k_norm"] = TensorSpec((hd,), pd, ("head_dim",), init="ones")
     return specs
@@ -194,9 +203,54 @@ def _sdpa(
     return out.reshape(b, t, h, hd)
 
 
-def _chunked_sdpa(q, k, v, *, causal, chunk, q_offset=None, kv_len=None):
-    raise NotImplementedError(
-        "attention_impl='chunked' is not ported yet (ROADMAP Queue 1 item 11)")
+def _chunked_sdpa(
+    q: torch.Tensor,  # (B, T, H, hd)
+    k: torch.Tensor,  # (B, S, KV, hd)
+    v: torch.Tensor,  # (B, S, KV, hd)
+    *,
+    causal: bool,
+    chunk: int,
+    q_offset: Optional[int] = None,
+    kv_len: Optional[int] = None,
+) -> torch.Tensor:
+    """Online-softmax attention over key chunks of ``chunk`` keys: only a
+    (T, chunk) tile of scores exists at a time, with the running maximum,
+    denominator and accumulator in float32 (the reference's `lax.scan`, as
+    a loop).  The scores come from a product in the inputs' dtype, the
+    probabilities are cast to v's dtype before P.V and each chunk's P.V is
+    added in float32, as in the reference."""
+    b, t, h, hd = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    if s % chunk:  # the reference falls back on ragged key lengths
+        return _sdpa(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    g = h // kv
+    qg = q.reshape(b, t, kv, g, hd)
+    scale = 1.0 / math.sqrt(hd)
+    qpos = torch.arange(t, device=q.device)[:, None] + (q_offset or 0)
+    m = torch.full((b, kv, g, t), -1e30, dtype=_F32, device=q.device)
+    l = torch.zeros((b, kv, g, t), dtype=_F32, device=q.device)
+    acc = torch.zeros((b, kv, g, t, hd), dtype=_F32, device=q.device)
+    for c0 in range(0, s, chunk):
+        kb, vb = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+        logits = torch.einsum("btkgh,bckh->bkgtc", qg, kb).to(_F32) * scale
+        kpos = c0 + torch.arange(chunk, device=q.device)[None, :]
+        mask = None
+        if causal:
+            mask = qpos >= kpos
+        if kv_len is not None:
+            valid = kpos < kv_len
+            mask = valid if mask is None else (mask & valid)
+        if mask is not None:
+            logits = logits.masked_fill(~mask, -1e30)
+        m_new = torch.maximum(m, logits.amax(-1))
+        p = torch.exp(logits - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1)
+        pv = torch.einsum("bkgtc,bckh->bkgth", p.to(vb.dtype), vb)
+        acc = acc * alpha[..., None] + pv.to(_F32)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]  # (b, kv, g, t, hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, hd).to(q.dtype)
 
 
 def _use_chunked(cfg: ModelConfig, t: int, s: int) -> bool:
@@ -223,23 +277,26 @@ def attn_apply(
     *,
     positions: torch.Tensor,  # (B, T) absolute positions (ints)
     causal: bool = True,
+    kv_source: Optional[torch.Tensor] = None,  # cross-attention source (B, S, d)
     cache: Optional[Dict[str, torch.Tensor]] = None,  # {"k","v"} (B, S, KV, hd)
     cache_index: Optional[int] = None,
     use_rope: bool = True,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """One self-attention block.  Returns (output, cache or None).
+    """One attention block.  Returns (output, cache or None).
 
     Modes:
-      * train / teacher-forced: cache=None;
+      * train / teacher-forced / encoder: cache=None, kv_source=None (self)
+        or the encoder's output (cross, bidirectional, no RoPE);
       * prefill: cache=zeroed buffers, cache_index=0, fills [0, T);
       * decode: cache=filled buffers, cache_index=current length.
     The cache is written in place at [cache_index, cache_index + T) and
     returned; the reference returns an updated copy.
     """
-    q, k, v = _project_qkv(p, cfg, x, x)
+    xkv = kv_source if kv_source is not None else x
+    q, k, v = _project_qkv(p, cfg, x, xkv)
     t = x.shape[1]
 
-    if use_rope:
+    if use_rope and kv_source is None:
         cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         q = apply_rope(q, cos[:, :, None, :], sin[:, :, None, :])
         k = apply_rope(k, cos[:, :, None, :], sin[:, :, None, :])
@@ -256,13 +313,14 @@ def attn_apply(
         kv_len = idx + t
         q_offset = idx
 
-    if cache is None and causal and _use_flash(cfg, t, x.device):
+    self_attn = kv_source is None
+    if cache is None and self_attn and causal and _use_flash(cfg, t, x.device):
         out = flash_attention(q, k, v, True)
-    elif _use_chunked(cfg, t, k.shape[1]):
+    elif self_attn and _use_chunked(cfg, t, k.shape[1]):
         out = _chunked_sdpa(q, k, v, causal=causal, chunk=cfg.attention_chunk,
                             q_offset=q_offset, kv_len=kv_len)
     else:
-        out = _sdpa(q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len)
+        out = _sdpa(q, k, v, causal=causal and self_attn, q_offset=q_offset, kv_len=kv_len)
 
     y = torch.einsum("bthk,hkd->btd", out, p["wo"].to(cfg.cdtype))
     if "bo" in p:
@@ -311,8 +369,118 @@ def mlp_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def moe_apply(p: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor):
-    raise NotImplementedError("the MoE layer is not ported yet (ROADMAP Queue 1 item 11)")
+# ---------------------------------------------------------------------------
+# Mixture of Experts
+# ---------------------------------------------------------------------------
+
+
+def moe_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """The router (float32, as the reference keeps it), the stacked SwiGLU
+    experts, and the always-on shared expert or dense residual MLP."""
+    if cfg.moe is None:
+        raise ValueError("moe_specs needs a MoEConfig")
+    moe, d, pd = cfg.moe, cfg.d_model, cfg.pdtype
+    e, f = moe.num_experts, moe.d_ff_expert
+    specs: Dict[str, Any] = {
+        "router": TensorSpec((d, e), _F32, ("embed", "experts"), init="scaled_normal"),
+        "wi_gate": TensorSpec((e, d, f), pd, ("experts", "embed", "expert_ffn"),
+                              init="scaled_normal"),
+        "wi_up": TensorSpec((e, d, f), pd, ("experts", "embed", "expert_ffn"),
+                            init="scaled_normal"),
+        "wo": TensorSpec((e, f, d), pd, ("experts", "expert_ffn", "embed"),
+                         init="scaled_normal"),
+    }
+    if moe.shared_experts:
+        sf = f * moe.shared_experts
+        specs["shared"] = {
+            "wi_gate": TensorSpec((d, sf), pd, ("embed", "ffn"), init="scaled_normal"),
+            "wi_up": TensorSpec((d, sf), pd, ("embed", "ffn"), init="scaled_normal"),
+            "wo": TensorSpec((sf, d), pd, ("ffn", "embed"), init="scaled_normal"),
+        }
+    if moe.dense_residual:
+        specs["dense"] = mlp_specs(cfg, d_ff=cfg.d_ff)
+    return specs
+
+
+def _expert_capacity(tokens: int, moe: MoEConfig) -> int:
+    cap = int(math.ceil(tokens * moe.top_k * moe.capacity_factor / moe.num_experts))
+    return max(cap, moe.top_k)
+
+
+def moe_route(router: torch.Tensor, moe: MoEConfig,
+              xf: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The reference's routing of ``xf`` (N, d) tokens, as tensors:
+
+      * ``probs`` (N, E) float32: softmax of the float32 router logits;
+      * ``expert_ids`` / ``gates`` (N, k): the top k, ties to the lower
+        expert as `lax.top_k` breaks them (a stable descending sort), the
+        gates renormalized over the k;
+      * ``keep`` / ``slot`` (k·N,), k-major (slot j of every token, then
+        slot j + 1): a pair is kept when fewer than ``capacity`` earlier
+        pairs in that order went to its expert, and its slot is
+        expert·capacity + its rank there (E·capacity for a dropped pair);
+      * ``aux``: the Switch load-balancing loss, E · Σ_e f_e · p_e with f
+        the top-1 share, times ``router_aux_weight``.
+    """
+    n = xf.shape[0]
+    e, k = moe.num_experts, moe.top_k
+    cap = _expert_capacity(n, moe)
+    probs = torch.softmax(xf.to(_F32) @ router.to(_F32), dim=-1)
+    order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, expert_ids = order.values[:, :k], order.indices[:, :k]
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    top1 = torch.zeros((e,), dtype=_F32, device=xf.device).index_add_(
+        0, expert_ids[:, 0], torch.ones((n,), dtype=_F32, device=xf.device)) / n
+    aux = moe.router_aux_weight * e * (probs.mean(0) * top1).sum()
+    flat_ids = expert_ids.T.reshape(-1)  # (k*n,) k-major
+    onehot = F.one_hot(flat_ids, e)
+    rank = (onehot.cumsum(0) - onehot).gather(1, flat_ids[:, None])[:, 0]
+    keep = rank < cap
+    slot = torch.where(keep, flat_ids * cap + rank, torch.full_like(rank, e * cap))
+    return {"probs": probs, "expert_ids": expert_ids, "gates": gates, "keep": keep,
+            "slot": slot, "capacity": cap, "aux": aux}
+
+
+def moe_apply(p: Dict[str, Any], cfg: ModelConfig,
+              x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k capacity-limited MoE (the reference's local scatter/gather
+    dispatch).  Returns (output, aux loss).
+
+    Tokens go into an (E·C, d) slot buffer by their slot (`moe_route`),
+    through the stacked expert SwiGLU as batched products, and back.  A
+    dropped pair adds nothing: its token's residual passes through.  The
+    k gated outputs (each a compute-dtype product of output and gate) are
+    summed in float32 and rounded once to the compute dtype, which is how
+    the reference's `jnp.sum` over them accumulates.
+    """
+    if cfg.moe is None:
+        raise ValueError("moe_apply needs a MoEConfig")
+    moe, cd = cfg.moe, cfg.cdtype
+    b, t, d = x.shape
+    n = b * t
+    e, k = moe.num_experts, moe.top_k
+    xf = x.reshape(n, d)
+    r = moe_route(p["router"], moe, xf)
+    cap = r["capacity"]
+    # Scatter (k copies of the tokens, k-major) into the slot buffer; the
+    # slots are distinct but for the overflow row, which is dropped.
+    buf = torch.zeros((e * cap + 1, d), dtype=cd, device=x.device)
+    buf.index_add_(0, r["slot"], xf.to(cd).repeat(k, 1))
+    buf = buf[:e * cap].reshape(e, cap, d)
+    gate = torch.bmm(buf, p["wi_gate"].to(cd))
+    up = torch.bmm(buf, p["wi_up"].to(cd))
+    h = F.silu(gate.to(_F32)).to(cd) * up
+    out_flat = torch.bmm(h, p["wo"].to(cd)).reshape(e * cap, d)
+    gathered = out_flat[torch.clamp_max(r["slot"], e * cap - 1)]
+    gathered = gathered.masked_fill(~r["keep"][:, None], 0.0)
+    flat_gates = r["gates"].T.reshape(-1)
+    weighted = gathered * flat_gates[:, None].to(cd)
+    y = weighted.to(_F32).reshape(k, n, d).sum(0).to(cd).reshape(b, t, d)
+    if "shared" in p:
+        y = y + mlp_apply(p["shared"], cfg.replace(mlp_act="swiglu"), x)
+    if "dense" in p:
+        y = y + mlp_apply(p["dense"], cfg, x)
+    return y, r["aux"]
 
 
 # ---------------------------------------------------------------------------

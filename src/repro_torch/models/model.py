@@ -1,35 +1,44 @@
-"""The model facade (port of `repro/models/model.py`) for the dense and SSM families.
+"""The model facade (port of `repro/models/model.py`) over the six families:
+dense, moe, ssm, hybrid, encdec and vlm.
 
 `Model(cfg)` is an `nn.Module` that owns the parameters.  Their names
-mirror the reference's tree, with the stacked "layers" axis held apart:
+mirror the reference's tree, with each stacked "layers" axis held apart:
 the reference's ``params["layers"]["attn"]["wq"][i]`` is the port's
-``layers.{i}.attn.wq`` (for the SSM family, ``layers.{i}.norm.*`` and
-``layers.{i}.ssm.*``).  The entry points are the reference's:
+``layers.{i}.attn.wq``.  The groups are the reference's: ``embed``,
+``pos_table`` (learned positions), ``layers`` (the decoder blocks, or the
+SSM family's ``norm``/``ssm`` layers), ``encoder.layers`` and
+``encoder.final_norm`` (encdec), ``hybrid.mamba`` and the one
+``hybrid.shared_attn`` block (hybrid), and ``final_norm``.  The entry
+points are the reference's:
 
   * ``param_specs()``                the stacked TensorSpec tree, as the reference's
-  * ``forward(batch)``               teacher-forced logits (f32) and aux loss
+  * ``forward(batch)``               teacher-forced logits (f32) over the text
+                                     positions, and the MoE aux loss
   * ``loss_fn(batch)``               shifted cross-entropy + z-loss + aux
   * ``cache_specs(batch, max_len)``  / ``init_cache(...)``: the stacked KV
-                                     cache, or for the SSM family the recurrent
-                                     state (O(1) in length: ``max_len`` unused)
+                                     cache (with the encoder's ``xk``/``xv``
+                                     for encdec), the SSM's recurrent state,
+                                     or the hybrid's state and site caches
   * ``prefill(batch, cache)``        fill the cache from 0, last-position logits
   * ``decode_step(cache, tokens, index)``
 
 Each takes ``params=`` to run on another tree of the same shape (the
 reference's functional form); by default the module's own.  The cache is
 updated in place and returned.  Batches are ``{"tokens": (B,T) ints}``
-(numpy or torch), with an optional ``loss_mask``.
+(numpy or torch), with an optional ``loss_mask``, and the modality stubs
+of the reference: ``frames`` (B, S_enc, d) for encdec, run through the
+encoder (at prefill, into the cross caches), and ``patches`` (B, P, d) for
+the VLM, prepended to the text embeddings, so that positions run over
+patches and text and a VLM prefill fills P + T cache slots.
 
-The SSM family's forward and prefill send every chunked SSD call to the
-SSD kernel (``use_kernel=True``): the reference's `Model` leaves
-`ssm_apply` at its einsum default, and its kernel is reached only by
-calling `ssd_chunked(use_kernel=True)` directly; the two routes compute
-the same function (ROADMAP Queue 3).  Decode (T = 1) is the recurrent
-step, which has no kernel.  With gradients enabled (training) each
-layer's call is wrapped by `parallel.remat.remat_wrap` under
-``cfg.remat_policy``, as the reference wraps its scan body.  The other
-families (moe, hybrid, encdec, vlm) and learned position tables are not
-ported yet and raise (ROADMAP Queue 1 item 11).
+The SSM and hybrid families send every chunked SSD call to the SSD kernel
+(``use_kernel=True``): the reference's `Model` leaves `ssm_apply` at its
+einsum default, and its kernel is reached only by calling
+`ssd_chunked(use_kernel=True)` directly; the two routes compute the same
+function (ROADMAP Queue 3).  Decode (T = 1) is the recurrent step, which
+has no kernel.  With gradients enabled (training) each layer's call is
+wrapped by `parallel.remat.remat_wrap` under ``cfg.remat_policy``, as the
+reference wraps its scan body.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ import torch
 from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import hybrid as H
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
@@ -47,60 +57,95 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.spec import TensorSpec, count_params, init_tree, leaves, tree_map
 from repro_torch.parallel.remat import remat_wrap
 
-__all__ = ["Model", "total_params"]
+__all__ = ["Model", "active_params", "total_params"]
 
 Tree = Dict[str, Any]
+
+# The families whose backbone is the decoder stack alone.
+_DECODER_FAMILIES = ("dense", "moe", "vlm")
 
 
 def total_params(cfg: ModelConfig) -> int:
     return count_params(_param_specs(cfg))
 
 
+def active_params(cfg: ModelConfig) -> int:
+    """Parameters touched per token (all of them, but for the MoE family's
+    experts outside a token's top k)."""
+    n = total_params(cfg)
+    if cfg.family != "moe" or cfg.moe is None:
+        return n
+    moe = cfg.moe
+    per_expert = 3 * cfg.d_model * moe.d_ff_expert
+    return n - (moe.num_experts - moe.top_k) * per_expert * cfg.num_layers
+
+
 # The weights the reference reads only in the compute dtype (``.astype(cd)``
 # at every use, or the embedding's gather-then-cast): `Model.cast_weights_`
-# casts these and no others.  The SSM's conv taps are read in float32.
+# casts these and no others.  The SSM's conv taps and the MoE's router are
+# read in float32.
 _COMPUTE_DTYPE_WEIGHTS = frozenset({
-    "embedding", "unembed",
+    "embedding", "unembed", "pos_table",
     "wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo",  # attention
-    "wi", "wi_gate", "wi_up", "bi",  # MLP ("wo", "bo" as above)
+    "wi", "wi_gate", "wi_up", "bi",  # MLP and experts ("wo", "bo" as above)
     "wz", "wx", "wB", "wC", "wdt", "out_proj",  # SSM
 })
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    cfg.validate()
-    if cfg.family not in ("dense", "ssm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 11)")
-    if cfg.pos_emb == "learned":
-        raise NotImplementedError(
-            "learned position tables are not ported yet (ROADMAP Queue 1 item 11)")
-
-
 def _layer_specs(cfg: ModelConfig) -> Tree:
-    """One layer's parameter tree."""
+    """One layer's parameter tree of the ``layers`` group."""
     if cfg.family == "ssm":
         return {"norm": L.norm_specs(cfg), "ssm": S.ssm_specs(cfg)}
-    return T.block_specs(cfg)
+    return T.block_specs(cfg, cross=cfg.family == "encdec")
 
 
-def _param_specs(cfg: ModelConfig) -> Tree:
-    _check_ported(cfg)
-    if cfg.family == "ssm":
-        layers = T.stack_specs(_layer_specs(cfg), cfg.num_layers)
+def _param_specs(cfg: ModelConfig, *, stacked: bool = True) -> Tree:
+    """The parameter tree: stacked over layers as the reference's, or with
+    ``stacked=False`` as the port holds it (each stack a list of per-layer
+    dicts)."""
+    cfg.validate()
+    specs: Tree = {"embed": L.embedding_specs(cfg)}
+    if cfg.pos_emb == "learned":
+        if cfg.max_position <= 0:
+            raise ValueError("learned position embeddings need max_position > 0")
+        specs["pos_table"] = TensorSpec((cfg.max_position, cfg.d_model), cfg.pdtype,
+                                        (None, "embed"), init="normal", init_scale=0.02)
+    if cfg.family == "encdec":
+        specs["encoder"] = T.encoder_stack_specs(cfg, stacked=stacked)
+    if cfg.family in _DECODER_FAMILIES + ("encdec", "ssm"):
+        specs["layers"] = (T.stack_specs(_layer_specs(cfg), cfg.num_layers) if stacked
+                           else [_layer_specs(cfg) for _ in range(cfg.num_layers)])
+    elif cfg.family == "hybrid":
+        specs["hybrid"] = H.hybrid_specs(cfg, stacked=stacked)
     else:
-        layers = T.decoder_stack_specs(cfg)
-    return {"embed": L.embedding_specs(cfg), "layers": layers, "final_norm": L.norm_specs(cfg)}
+        raise ValueError(f"unknown family {cfg.family!r}")
+    specs["final_norm"] = L.norm_specs(cfg)
+    return specs
 
 
 def _unstacked_specs(cfg: ModelConfig) -> Tree:
-    """The port's own parameter tree: one layer dict per layer."""
-    _check_ported(cfg)
-    return {
-        "embed": L.embedding_specs(cfg),
-        "layers": [_layer_specs(cfg) for _ in range(cfg.num_layers)],
-        "final_norm": L.norm_specs(cfg),
-    }
+    """The port's own parameter tree: one dict per layer."""
+    return _param_specs(cfg, stacked=False)
+
+
+class _Group(nn.Module):
+    """A dict node that holds both tensors and subtrees (the MoE block:
+    router and experts beside the shared expert), in the tree's order."""
+
+    def __init__(self, tree: Tree):
+        super().__init__()
+        self._keys = tuple(tree)
+        for k, v in tree.items():
+            if isinstance(v, torch.Tensor):
+                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+            else:
+                self.add_module(k, _as_module(v))
+
+    def __getitem__(self, key: str) -> Any:
+        return getattr(self, key)
+
+    def items(self):
+        return [(k, getattr(self, k)) for k in self._keys]
 
 
 def _as_module(tree: Any) -> nn.Module:
@@ -109,6 +154,8 @@ def _as_module(tree: Any) -> nn.Module:
     if all(isinstance(v, torch.Tensor) for v in tree.values()):
         return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
                                  for k, v in tree.items()})
+    if any(isinstance(v, torch.Tensor) for v in tree.values()):
+        return _Group(tree)
     return nn.ModuleDict({k: _as_module(v) for k, v in tree.items()})
 
 
@@ -117,11 +164,11 @@ def _as_tree(m: nn.Module) -> Any:
         return dict(m.items())
     if isinstance(m, nn.ModuleList):
         return [_as_tree(v) for v in m]
-    return {k: _as_tree(v) for k, v in m.items()}
+    return {k: v if isinstance(v, torch.Tensor) else _as_tree(v) for k, v in m.items()}
 
 
 class Model(nn.Module):
-    """A dense or SSM decoder-only model with its parameters.
+    """A model of any of the six families, with its parameters.
 
     ``params``: a tree like `params_tree` gives (e.g. from
     `convert.params_from_jax`), moved to ``device``; otherwise the spec's
@@ -148,9 +195,13 @@ class Model(nn.Module):
                 if tuple(got[name].shape) != s.shape:
                     raise ValueError(f"{name}: shape {tuple(got[name].shape)} != {s.shape}")
             params = tree_map(lambda x: x.to(dev), params)
-        self.embed = _as_module(params["embed"])
-        self.layers = _as_module(params["layers"])
-        self.final_norm = _as_module(params["final_norm"])
+        self._groups = tuple(specs)  # the tree's top-level groups, in the spec's order
+        for group in self._groups:
+            value = params[group]
+            if isinstance(value, torch.Tensor):
+                setattr(self, group, nn.Parameter(value, requires_grad=False))
+            else:
+                setattr(self, group, _as_module(value))
 
     # -- parameters ---------------------------------------------------------
 
@@ -165,18 +216,22 @@ class Model(nn.Module):
         return total_params(self.cfg)
 
     def params_tree(self) -> Tree:
-        """The module's parameters as a nested dict, layers as a list."""
-        return {"embed": _as_tree(self.embed), "layers": _as_tree(self.layers),
-                "final_norm": _as_tree(self.final_norm)}
+        """The module's parameters as a nested dict, each stack a list."""
+        out = {}
+        for group in self._groups:
+            m = getattr(self, group)
+            out[group] = m if isinstance(m, torch.Tensor) else _as_tree(m)
+        return out
 
     @torch.no_grad()
     def cast_weights_(self) -> "Model":
         """Cast, in place, every weight the model only ever reads in the
-        compute dtype (`_COMPUTE_DTYPE_WEIGHTS`: the projections and the
-        embedding) to that dtype.  The outputs stay the same numbers, each
-        forward skips its per-use casts, and those weights take half the
-        memory of float32.  The rest stay in their dtype: norm scales, the
-        SSM's conv taps, decay rates and skip weights are read in float32."""
+        compute dtype (`_COMPUTE_DTYPE_WEIGHTS`: the projections, the
+        experts, the embedding and position tables) to that dtype.  The
+        outputs stay the same numbers, each forward skips its per-use
+        casts, and those weights take half the memory of float32.  The rest
+        stay in their dtype: norm scales, the MoE router, the SSM's conv
+        taps, decay rates and skip weights are read in float32."""
         for name, p in self.named_parameters():
             if name.rsplit(".", 1)[-1] in _COMPUTE_DTYPE_WEIGHTS:
                 p.data = p.data.to(self.cfg.cdtype)
@@ -186,6 +241,35 @@ class Model(nn.Module):
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
+
+    def _stub(self, batch: Dict[str, Any], key: str) -> torch.Tensor:
+        return torch.as_tensor(batch[key], device=self.device)
+
+    def _num_patches(self, batch: Dict[str, Any]) -> int:
+        if self.cfg.family == "vlm" and "patches" in batch:
+            return int(batch["patches"].shape[1])
+        return 0
+
+    def _embed_inputs(self, params: Tree, batch: Dict[str, Any], tokens: torch.Tensor,
+                      positions: torch.Tensor) -> torch.Tensor:
+        """Token embeddings, after the VLM's patches, plus learned positions."""
+        cfg = self.cfg
+        x = L.embed_apply(params["embed"], cfg, tokens)
+        if self._num_patches(batch):
+            x = torch.cat([self._stub(batch, "patches").to(cfg.cdtype), x], dim=1)
+        if cfg.pos_emb == "learned":
+            # Rows first, then the cast: the reference's cast-then-gather.
+            x = x + params["pos_table"][positions].to(cfg.cdtype)
+        return x
+
+    def _inputs(self, params: Tree, batch: Dict[str, Any],
+                index: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(embedded inputs, positions) for ``batch`` at [index, index + P + T)."""
+        tokens = self._tokens(batch["tokens"])
+        b, t = tokens.shape
+        t = t + self._num_patches(batch)
+        positions = (index + torch.arange(t, device=tokens.device))[None, :].expand(b, t)
+        return self._embed_inputs(params, batch, tokens, positions), positions
 
     def _final_logits(self, params: Tree, h: torch.Tensor) -> torch.Tensor:
         h = L.norm_apply(params["final_norm"], self.cfg, h)
@@ -197,16 +281,22 @@ class Model(nn.Module):
                 params: Optional[Tree] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """(logits (B,T,V) f32 aligned with batch["tokens"], aux loss)."""
         params = params or self.params_tree()
-        tokens = self._tokens(batch["tokens"])
-        b, t = tokens.shape
-        x = L.embed_apply(params["embed"], self.cfg, tokens)
-        if self.cfg.family == "ssm":
+        cfg = self.cfg
+        x, positions = self._inputs(params, batch, 0)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if cfg.family in _DECODER_FAMILIES:
+            h, aux, _ = T.decoder_stack_apply(params["layers"], cfg, x, positions=positions)
+        elif cfg.family == "encdec":
+            enc = T.encoder_stack_apply(params["encoder"], cfg, self._stub(batch, "frames"))
+            h, aux, _ = T.decoder_stack_apply(params["layers"], cfg, x, positions=positions,
+                                              cross_source=enc)
+        elif cfg.family == "ssm":
             h = self._ssm_forward(params, x)
-            aux = torch.zeros((), dtype=torch.float32, device=x.device)
         else:
-            positions = torch.arange(t, device=tokens.device)[None, :].expand(b, t)
-            h, aux, _ = T.decoder_stack_apply(params["layers"], self.cfg, x,
-                                              positions=positions)
+            h, _ = H.hybrid_apply(params["hybrid"], cfg, x, positions=positions)
+        # The logits cover the text positions; the norm and the unembedding
+        # are per position, so the patches' rows are dropped first.
+        h = h[:, self._num_patches(batch):]
         return self._final_logits(params, h), aux
 
     def _ssm_forward(self, params: Tree, x: torch.Tensor) -> torch.Tensor:
@@ -245,9 +335,19 @@ class Model(nn.Module):
     # -- decode cache ----------------------------------------------------------
 
     def cache_specs(self, batch: int, max_len: int) -> Dict[str, TensorSpec]:
-        if self.cfg.family == "ssm":
-            return S.ssm_state_specs(self.cfg, batch, self.cfg.num_layers)
-        return L.init_kv_cache_specs(self.cfg, batch, max_len, self.cfg.num_layers)
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            return S.ssm_state_specs(cfg, batch, cfg.num_layers)
+        if cfg.family == "hybrid":
+            return H.hybrid_state_specs(cfg, batch, max_len)
+        specs = L.init_kv_cache_specs(cfg, batch, max_len, cfg.num_layers)
+        if cfg.family == "encdec":
+            shape = (cfg.num_layers, batch, cfg.encoder.source_len, cfg.num_kv_heads,
+                     cfg.head_dim)
+            axes = ("layers", "batch", None, "kv_heads", "head_dim")
+            specs["xk"] = TensorSpec(shape, cfg.cdtype, axes)
+            specs["xv"] = TensorSpec(shape, cfg.cdtype, axes)
+        return specs
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
         return {k: torch.zeros(s.shape, dtype=s.dtype, device=self.device)
@@ -255,19 +355,22 @@ class Model(nn.Module):
 
     # -- prefill / decode ------------------------------------------------------
 
-    def _decoder_pass(self, params: Tree, tokens, cache: Dict[str, torch.Tensor],
+    def _decoder_pass(self, params: Tree, batch: Dict[str, Any], cache: Dict[str, torch.Tensor],
                       index: int, last_only: bool) -> torch.Tensor:
-        """Consume tokens at [index, index+T), writing the cache in place."""
-        tokens = self._tokens(tokens)
-        b, t = tokens.shape
-        x = L.embed_apply(params["embed"], self.cfg, tokens)
-        if self.cfg.family == "ssm":
+        """Consume the batch at [index, index + P + T), writing the cache in place."""
+        cfg = self.cfg
+        x, positions = self._inputs(params, batch, index)
+        if cfg.family in _DECODER_FAMILIES + ("encdec",):
+            cross = ({"k": cache["xk"], "v": cache["xv"]} if cfg.family == "encdec"
+                     else None)
+            h, _, _ = T.decoder_stack_apply(params["layers"], cfg, x, positions=positions,
+                                            caches={"k": cache["k"], "v": cache["v"]},
+                                            cache_index=index, cross_caches=cross)
+        elif cfg.family == "ssm":
             h = self._ssm_pass(params, x, cache)
         else:
-            positions = (index + torch.arange(t, device=tokens.device))[None, :].expand(b, t)
-            h, _, _ = T.decoder_stack_apply(params["layers"], self.cfg, x,
-                                            positions=positions, caches=cache,
-                                            cache_index=index)
+            h, _ = H.hybrid_apply(params["hybrid"], cfg, x, positions=positions, state=cache,
+                                  cache_index=index)
         if last_only:  # the unembedding is per position: only the last one is kept
             h = h[:, -1:]
         return self._final_logits(params, h)
@@ -287,13 +390,34 @@ class Model(nn.Module):
 
     def prefill(self, batch: Dict[str, Any], cache: Dict[str, torch.Tensor],
                 params: Optional[Tree] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Fill the cache from position 0; returns (last-position logits (B,1,V), cache)."""
+        """Fill the cache from position 0; returns (last-position logits (B,1,V), cache).
+        For encdec the encoder runs here and fills the cross K/V caches."""
         params = params or self.params_tree()
-        return self._decoder_pass(params, batch["tokens"], cache, 0, last_only=True), cache
+        if self.cfg.family == "encdec":
+            enc = T.encoder_stack_apply(params["encoder"], self.cfg, self._stub(batch, "frames"))
+            _build_cross_caches(params["layers"], self.cfg, enc, cache)
+        return self._decoder_pass(params, batch, cache, 0, last_only=True), cache
 
     def decode_step(self, cache: Dict[str, torch.Tensor], tokens, index: int,
                     params: Optional[Tree] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Consume ``tokens`` (B,T) at position ``index`` (the current cache
-        length); returns (logits (B,T,V), cache)."""
+        length, patches included); returns (logits (B,T,V), cache)."""
         params = params or self.params_tree()
-        return self._decoder_pass(params, tokens, cache, int(index), last_only=False), cache
+        return self._decoder_pass(params, {"tokens": tokens}, cache, int(index),
+                                  last_only=False), cache
+
+
+def _build_cross_caches(layers, cfg: ModelConfig, enc: torch.Tensor,
+                        cache: Dict[str, torch.Tensor]) -> None:
+    """Project the encoder's output through every decoder layer's cross K/V,
+    into ``cache["xk"]`` / ``cache["xv"]`` in place."""
+    cd = cfg.cdtype
+    for i, p in enumerate(layers):
+        ca = p["cross_attn"]
+        k = torch.einsum("bsd,dhk->bshk", enc, ca["wk"].to(cd))
+        v = torch.einsum("bsd,dhk->bshk", enc, ca["wv"].to(cd))
+        if "bk" in ca:
+            k = k + ca["bk"].to(cd)
+            v = v + ca["bv"].to(cd)
+        cache["xk"][i].copy_(k)
+        cache["xv"][i].copy_(v)

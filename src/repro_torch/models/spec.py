@@ -88,8 +88,19 @@ def _init(spec: TensorSpec, generator: torch.Generator, device: torch.device) ->
         std = spec.init_scale / math.sqrt(max(fan_in, 1))
     else:
         raise ValueError(f"unknown init {spec.init!r}")
-    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32, device=device)
-    return x.mul_(std).to(spec.dtype)
+    if spec.dtype == torch.float32 or len(spec.shape) < 2:
+        x = torch.randn(spec.shape, generator=generator, dtype=torch.float32, device=device)
+        return x.mul_(std).to(spec.dtype)
+    # Drawn in float32 a block of the leading axis (up to 2^26 values) at a
+    # time, so that a large bfloat16 leaf (a layer's experts) never has a
+    # whole float32 twin.
+    out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
+    rows = max(1, (1 << 26) // math.prod(spec.shape[1:]))
+    for i in range(0, spec.shape[0], rows):
+        x = torch.randn((min(rows, spec.shape[0] - i),) + spec.shape[1:], generator=generator,
+                        dtype=torch.float32, device=device)
+        out[i:i + rows] = x.mul_(std)
+    return out
 
 
 def init_tree(generator: torch.Generator, specs: Any, device=None) -> Any:

@@ -1,8 +1,10 @@
 """Batched serving loop (port of `repro/runtime/decode_loop.py`).
 
 Requests (prompts) are grouped into fixed-size batches, prefilled once,
-then decoded greedily token by token.  Per-request stop handling masks
-finished rows (EOS); the loop reports prefill time and decode throughput.
+then decoded greedily token by token.  A VLM batch's P patches fill the
+cache before its T text tokens, so decoding starts at position P + T.
+Per-request stop handling masks finished rows (EOS); the loop reports
+prefill time and decode throughput.
 
 The cache is updated in place by each step, which takes the place of the
 reference's ``donate_argnums``: one buffer per batch, no copy per token.
@@ -33,13 +35,14 @@ class ServeLoop:
     @torch.inference_mode()
     def generate(
         self,
-        batch: Dict[str, torch.Tensor],  # {"tokens": (B,T)}
+        batch: Dict[str, torch.Tensor],  # {"tokens": (B,T), + modality stubs}
         max_new_tokens: int,
         *,
         echo_metrics: bool = False,
     ) -> Dict[str, Any]:
         cache = self.init_cache()
         b, t = batch["tokens"].shape
+        offset = t + (batch["patches"].shape[1] if "patches" in batch else 0)
 
         t0 = time.monotonic()
         logits, cache = self.prefill_step(self.params, batch, cache)
@@ -50,7 +53,7 @@ class ServeLoop:
         out_tokens: List[np.ndarray] = [host_tok]
         finished = np.zeros((b,), bool)
         t1 = time.monotonic()
-        index = t
+        index = offset
         for _ in range(max_new_tokens - 1):
             logits, cache = self.decode_step(self.params, cache, next_tok, index)
             next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]

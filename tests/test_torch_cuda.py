@@ -611,6 +611,7 @@ def test_ssd_kernel_reads_head_broadcast_views(dev):
     (1, 2, 256, 8, 64, 128, 2, False),  # G > 1: head h reads group h // 4
     (2, 2, 256, 8, 64, 128, 1, True),  # x, B and C bf16 values, as the model gives them
     (1, 1, 300, 6, 40, 72, 3, True),
+    (8, 8, 256, 64, 64, 64, 1, True),  # zamba2's prefill of 8 x 2048 tokens
 ])
 def test_ssd_kernel_reads_grouped_b_and_c(dev, b, nc, q, h, p, n, g, bf16):
     """B and C per group, (b, nc, q, G, n), as `ssd_chunked` passes them:
@@ -760,3 +761,78 @@ def test_train_step_launches_kernels_twice_per_layer(dev, arch):
     _, ref = make_train_step(cpu, ex)(init_train_state(cpu, ex), shard_batch(batch, "cpu"))
     for k in ("loss", "grad_norm"):
         assert_close(float(ref[k]), float(m[k]), rtol=1e-4, atol=1e-5, what=k)
+
+
+# ---------------------------------------------------------------- the other families
+
+
+FAMILY_FA_SHAPES = [  # (b, t, h, kv, d): the causal forwards the other families give K2
+    (1, 4096, 64, 8, 112),  # kimi-k2: D = 112, between the tile widths
+    (1, 4096, 48, 1, 128),  # granite-34b: one KV head for all 48
+    (1, 4096, 40, 40, 128),  # qwen1.5-32b: no grouping
+    (1, 32768, 32, 32, 64),  # zamba2's shared block at T = 32768
+    (4, 512, 6, 6, 64),  # whisper's decoder
+]
+
+
+@pytest.mark.parametrize("b,t,h,kv,d", FAMILY_FA_SHAPES)
+def test_flash_kernel_at_the_families_shapes(dev, b, t, h, kv, d):
+    """bfloat16, so the tensor-core kernel, against the plain version."""
+    q, k, v = qkv(dev, t + h + d, b, t, h, kv, d, torch.bfloat16)
+    before = fa_counts()
+    out = flash_attention(q, k, v, True)
+    torch.cuda.synchronize()
+    assert fa_counts() == fa_launched(before, "tensor_core")
+    plain = flash_attention_plain(q, k, v)
+    assert out.shape == q.shape and bool(torch.isfinite(out).all())
+    assert_close(plain.float().cpu().numpy(), out.float().cpu().numpy(),
+                 **FA_TOL[torch.bfloat16], what="kernel vs plain")
+
+
+def _family_batch(cfg, b, t):
+    from repro_torch.data.pipeline import make_batch
+
+    batch = make_batch(cfg, b, t, seed=0)
+    return {k: v for k, v in batch.items() if k != "loss_mask"}
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "granite-34b", "qwen1.5-32b", "kimi-k2-1t-a32b",
+                                  "arctic-480b", "zamba2-1.2b", "whisper-tiny",
+                                  "llava-next-mistral-7b"])
+def test_family_smoke_model_on_the_card_matches_the_cpu(dev, arch):
+    """Each family's smoke model in float32 on the card (T = 128 with the
+    VLM's 8 patches, so the causal self-attention of the forward takes K2's
+    CUDA-core kernel, once a layer or site, and the SSM layers K3) against
+    the same parameters on the CPU (the plain versions); prefill and decode
+    launch no K2, and decode no K3."""
+    from repro_torch import configs
+    from repro_torch.models.model import Model
+    from repro_torch.models.spec import tree_map
+
+    cfg = configs.smoke(arch).model.replace(param_dtype="float32", compute_dtype="float32")
+    model = Model(cfg, device=dev, seed=0)
+    cpu = Model(cfg, params=tree_map(lambda x: x.cpu(), model.params_tree()), device="cpu")
+    batch = _family_batch(cfg, 2, 128)
+    sites = {"hybrid": -(-cfg.num_layers // max(cfg.hybrid_attn_every, 1))}
+    want_fa = 0 if cfg.attention_impl == "chunked" else sites.get(cfg.family, cfg.num_layers)
+    want_ssd = cfg.num_layers if cfg.family == "hybrid" else 0
+    fa, ssd = fa_kernel.flash_attention_cuda, ssd_kernel.ssd_diag_cuda
+    with torch.inference_mode():
+        before = (fa.launches, ssd.launches)
+        logits, aux = model.forward(batch)
+        torch.cuda.synchronize()
+        assert (fa.launches - before[0], ssd.launches - before[1]) == (want_fa, want_ssd)
+        ref, ref_aux = cpu.forward(batch)
+        assert_close(ref.numpy(), logits.cpu().numpy(), rtol=1e-4, atol=1e-4, what="forward")
+        assert_close(float(ref_aux), float(aux), rtol=1e-4, atol=1e-6, what="aux")
+        t = batch["tokens"].shape[1] + (cfg.num_patch_tokens if cfg.family == "vlm" else 0)
+        cache, cpu_cache = model.init_cache(2, t + 4), cpu.init_cache(2, t + 4)
+        got, _ = model.prefill(batch, cache)
+        want, _ = cpu.prefill(batch, cpu_cache)
+        tok = want[:, -1].argmax(-1)[:, None]
+        got_step, _ = model.decode_step(cache, tok.to(dev), t)
+        want_step, _ = cpu.decode_step(cpu_cache, tok, t)
+        torch.cuda.synchronize()
+        assert (fa.launches - before[0], ssd.launches - before[1]) == (want_fa, 2 * want_ssd)
+    assert_close(want.numpy(), got.cpu().numpy(), rtol=1e-4, atol=1e-4, what="prefill")
+    assert_close(want_step.numpy(), got_step.cpu().numpy(), rtol=1e-4, atol=1e-4, what="decode")

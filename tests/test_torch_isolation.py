@@ -76,6 +76,10 @@ def test_scans_cover_every_subpackage():
                 "launch", "optim", "parallel", "checkpoint"):
         assert any(m.startswith(f"repro_torch.{sub}.") for m in mods), sub
         assert any(f.startswith(f"src/repro_torch/{sub.replace('.', '/')}/") for f in files), sub
+    for mod in ("models.hybrid", "models.transformer", "models.layers", "configs.kimi_k2_1t_a32b",
+                "configs.zamba2_1p2b", "configs.whisper_tiny", "configs.llava_next_mistral_7b"):
+        assert f"repro_torch.{mod}" in mods, mod
+        assert f"src/repro_torch/{mod.replace('.', '/')}.py" in files, mod
 
 
 def profiled_model(sim):

@@ -9,7 +9,12 @@ module).  Covered: the Qwen3-8B spec tree; configs; the layers (norms,
 RoPE, qk-norm, `_sdpa`, `attn_apply` without a cache, at prefill and at
 decode, the MLPs, embedding and unembedding); a two-layer GQA Qwen3-like
 model's forward, loss, prefill and decode under every attention route;
-and one Qwen3-8B layer at full width.
+one Qwen3-8B layer at full width; every reference architecture's config,
+smoke variant and spec tree; the other dense configs' smoke models
+(granite-8b, granite-34b, qwen1.5-32b; `tests/torch_zoo.py`); the
+reference's parameters of every family carried into the port
+(`params_from_jax`); and the serve CLI for the eight architectures ported
+with the other families.
 
 On the CPU, ``attention_impl="pallas"`` runs the reference's oracle
 (`attention_ref`, its CPU route for the flash op) and the port's plain
@@ -36,6 +41,7 @@ import jax.numpy as jnp
 
 import repro.configs as ref_configs
 from repro.models import Model as RefModel
+from repro.models import active_params as ref_active_params
 from repro.models import total_params as ref_total_params
 from repro.models import tree_bytes as ref_tree_bytes
 from repro.models import layers as RL
@@ -45,9 +51,10 @@ from repro_torch.models import layers as PL
 from repro_torch.models.config import ModelConfig as PortConfig
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.model import Model as PortModel
-from repro_torch.models.model import _param_specs, total_params
+from repro_torch.models.model import _param_specs, active_params, total_params
 from repro_torch.models.spec import count_params, init_tree, leaves, tree_bytes
 from repro_torch.testing import BF16_ATOL, BF16_RTOL, FLOAT_ATOL, FLOAT_RTOL, assert_close
+import torch_zoo as zoo
 
 TOL = {"float32": dict(rtol=FLOAT_RTOL, atol=FLOAT_ATOL),
        "bfloat16": dict(rtol=BF16_RTOL, atol=BF16_ATOL)}
@@ -136,20 +143,41 @@ def test_configs_match_reference():
     assert port_configs.get("qwen3-8b").model.cdtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch", [a for a in ref_configs.ARCHS if a not in port_configs.REGISTRY])
-def test_other_archs_raise_naming_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        port_configs.get(arch)
-    with pytest.raises(KeyError):
+def _spec_rows(leaves_by_name):
+    return {name: (s.shape, s.axes, s.init, s.init_scale, str(s.dtype).split(".")[-1])
+            for name, s in leaves_by_name.items()}
+
+
+@pytest.mark.parametrize("arch", ref_configs.ARCHS)
+def test_arch_config_and_spec_tree_match_reference(arch):
+    """Every reference architecture is registered, in the reference's order,
+    and its config, smoke variant and parameter tree (names, shapes, axes,
+    initializers, dtypes) are the reference's."""
+    assert port_configs.ARCHS == ref_configs.ARCHS
+    for get in ("get", "smoke"):
+        ref_spec = getattr(ref_configs, get)(arch)
+        port_spec = getattr(port_configs, get)(arch)
+        assert port_spec.name == ref_spec.name
+        assert dataclasses.asdict(port_spec.model) == dataclasses.asdict(ref_spec.model)
+        assert dataclasses.asdict(port_spec.exec) == dataclasses.asdict(ref_spec.exec)
+        assert port_spec.notes == ref_spec.notes
+        ref_specs = _ref_leaves(RefModel(ref_spec.model).param_specs())
+        port_specs = dict(leaves(_param_specs(port_spec.model)))
+        assert list(port_specs) == list(ref_specs)  # same names, same order
+        assert _spec_rows(port_specs) == {
+            name: (s.shape, s.axes, s.init, s.init_scale, jnp.dtype(s.dtype).name)
+            for name, s in ref_specs.items()}
+        assert total_params(port_spec.model) == ref_total_params(ref_spec.model)
+        assert active_params(port_spec.model) == ref_active_params(ref_spec.model)
+        assert tree_bytes(_param_specs(port_spec.model)) == \
+            ref_tree_bytes(RefModel(ref_spec.model).param_specs())
+
+
+def test_unknown_arch_raises():
+    with pytest.raises(KeyError, match="unknown arch"):
         port_configs.get("no-such-arch")
-
-
-def test_other_families_raise():
-    _, cfg = configs(**TINY)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        PortModel(cfg.replace(family="vlm"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        PL.moe_apply({}, cfg, torch.zeros(1, 1, 64))
+    with pytest.raises(KeyError, match="unknown arch"):
+        port_configs.smoke("no-such-arch")
 
 
 def test_init_tree_is_seeded_and_scaled():
@@ -415,3 +443,68 @@ def test_cast_weights_keeps_the_numbers():
     assert model.layers[0]["attn"]["wq"].dtype == torch.bfloat16
     assert model.layers[0]["attn"]["q_norm"].dtype == torch.float32
     assert torch.equal(before, after)
+
+
+# ---------------------------------------------------------------- the other configs
+
+NEW_ARCHS = [a for a in ref_configs.ARCHS if a not in ("qwen3-8b", "mamba2-370m")]
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["granite-8b", "granite-34b", "qwen1.5-32b"])
+def test_dense_configs_match_reference(arch, cd):
+    """The other dense configs' smoke variants (granite-34b's one KV head,
+    qwen1.5's QKV biases): forward, loss, prefill and three decode steps,
+    held as the new families are (`tests/torch_zoo.py`)."""
+    ref_model, ref_p, model = zoo.pair(ref_configs.smoke(arch).model.replace(compute_dtype=cd),
+                                       seed=1)
+    assert model.cfg.num_kv_heads == {"granite-8b": 4, "granite-34b": 1, "qwen1.5-32b": 4}[arch]
+    assert ("bq" in model.layers[0]["attn"]) == (arch == "qwen1.5-32b")
+    batch = zoo.make_inputs(model.cfg, 2, 20, seed=2)
+    zoo.hold_forward(ref_model, ref_p, model, batch, cd)
+    zoo.hold_prefill_and_decode(ref_model, ref_p, model,
+                                dict(batch, tokens=batch["tokens"][:, :12]), cd, max_len=32)
+
+
+@pytest.mark.parametrize("arch", ref_configs.ARCHS)
+def test_params_from_jax_carries_every_leaf(arch):
+    """Every leaf of the reference's tree lands in the port's model with
+    its values and dtype (bfloat16 for the MoE configs), each stacked group
+    (decoder or SSM layers, ``encoder.layers``, ``hybrid.mamba``) split
+    into its layers."""
+    ref_cfg = ref_configs.smoke(arch).model
+    ref_p = zoo.ref_params(RefModel(ref_cfg), 20)
+    cfg = zoo.port_config(ref_cfg)
+    model = PortModel(cfg, params=params_from_jax(ref_p, cfg), device="cpu")
+    port = dict(leaves(model.params_tree()))
+    stacked = {"layers": cfg.num_layers, "hybrid.mamba": cfg.num_layers,
+               "encoder.layers": cfg.encoder.num_layers if cfg.encoder else 0}
+    flat, _ = jax.tree_util.tree_flatten_with_path(ref_p)
+    seen = 0
+    for path, a in flat:
+        name = ".".join(k.key for k in path)
+        group = next((g for g in stacked if name.startswith(g + ".")), None)
+        if group is None:
+            pairs = [(name, np.asarray(a))]
+        else:
+            rest = name[len(group) + 1:]
+            pairs = [(f"{group}.{i}.{rest}", np.asarray(a)[i]) for i in range(stacked[group])]
+        for port_name, want in pairs:
+            got = port[port_name]
+            assert str(got.dtype).split(".")[-1] == want.dtype.name, port_name
+            assert np.array_equal(got.float().numpy(), want.astype(np.float32)), port_name
+            seen += 1
+    assert seen == len(port)
+    if ref_cfg.family == "moe":
+        assert port["layers.0.moe.wi_gate"].dtype == torch.bfloat16
+        assert port["layers.0.moe.router"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_serve_cli_runs_on_the_cpu(arch, capsys):
+    from repro_torch.launch import serve
+
+    serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--prompt-len", "8",
+                "--max-new-tokens", "4", "--max-len", "32", "--batch", "2"])
+    out = capsys.readouterr().out
+    assert "[serve] device=cpu" in out and "new=4" in out
