@@ -38,7 +38,9 @@ Phases, each reported on its own lines:
      CUDA-core kernel's path; then the tensor-core kernel at the shape of
      each forward of phases 16-20 (kimi-k2's D = 112, granite-34b's one KV
      head, qwen1.5-32b's 40/40, zamba2's T = 32768, whisper's decoder,
-     llava's 3584 positions), held and timed the same way;
+     llava's 3584 positions) and of each microbatch of phases 21-24
+     (zamba2's 2 x 4096, whisper's 8 x 512, llava's 2 x 3584), held and
+     timed the same way;
   6. the Qwen3-8B teacher-forced forward at full width and depth (36
      layers, float32 parameters drawn on the card from a seed, bfloat16
      compute, B=1, T=4096), held against the same parameters run through
@@ -52,8 +54,9 @@ Phases, each reported on its own lines:
      card, at the shapes of `tests/test_kernels.py`, the smoke model's
      chunk, ragged shapes, Q = 512 with N = 192 and P = 96, B and C per
      group (G = 1, 2 and 3, as the model passes them), bfloat16-valued
-     inputs, and the shapes of phases 9, 10, 13 and 18 (zamba2's forward
-     and prefill), timed there with bfloat16-valued x, B and C (as the
+     inputs, and the shapes of phases 9, 10, 13, 18 (zamba2's forward
+     and prefill) and 21 (zamba2's training microbatch), timed there with
+     bfloat16-valued x, B and C (as the
      model gives them) and with float32 values;
   9. the mamba2-370m teacher-forced forward at full width and depth (48
      layers, float32 parameters drawn on the card from a seed, bfloat16
@@ -75,10 +78,11 @@ Phases, each reported on its own lines:
      parameters drawn on the card from a seed, bfloat16 compute, AdamW,
      remat "full", global batch 2 x 4096 tokens in 2 microbatches) through
      `make_train_step` and `TrainLoop` for 3 steps, checkpointing at step 2
-     into a temporary directory: the first step held against the dense
-     attention route's, the restore of the step-2 checkpoint held bit for
-     bit and its step 3 against the uninterrupted one, and one more step
-     under the profiler;
+     into a temporary directory: every kernel launch of step 1 held to its
+     plain version on its own inputs, the first step held against the
+     dense attention route's, the restore of the step-2 checkpoint held
+     bit for bit and its step 3 against the uninterrupted one, and one
+     microbatch's gradient under the profiler;
  13. mamba2-370m training at full width and depth (global batch 4 x 4096
      tokens in 2 microbatches), the same checks with the einsum route of
      the SSD term as the other side;
@@ -87,7 +91,7 @@ Phases, each reported on its own lines:
      (`split_masks_device`) equal to the host split's lists for the 16
      paper jobs and for five memory models over the 131072-configuration
      catalog, both timed; (b) Table II through `tune_fleet`, 16 jobs x
-     seeds 0-7, both modes, to exhaustion, in the fused layout (and seeds
+     seeds 0-3, both modes, to exhaustion, in the fused layout (and seeds
      0-1 in the feature and gather layouts), each trace held against phase
      2's sequential one and the quotients against phase 2's; (c) 64
      CherryPick jobs over the catalog (eight chunks of eight) through a
@@ -133,7 +137,21 @@ Phases, each reported on its own lines:
      (2880 patches + 320 tokens) and 64), the served path's logits and
      tokens held to the forward's (but the MoE's: a forward routes all its
      tokens together, so its capacity drops others).  Each phase prints
-     its wall time and peak memory and frees its models.
+     its wall time and peak memory and frees its models;
+ 21-24. training the other families at full width, as phases 12 and 13
+     (`TRAIN_PATHS`, each cut printed on the phase's first line): 21
+     zamba2-1.2b at full depth (4 x 4096 in 2 microbatches, AdamW); 22
+     whisper-tiny in full (8 x 512 tokens and 1500 frames, remat "none");
+     23 llava with 8 of 32 layers (2 x (2880 patches + 704 tokens)); 24
+     kimi-k2 and arctic with 2 layers and their experts cut to 32 of 384
+     and 16 of 128 (4 x 4096 in 4 microbatches, bfloat16 accumulation,
+     Adafactor over the stacked tree, its state held to
+     `train_state_specs`).  The other side of step 1 is the same model with
+     the kernels' plain versions in their place (arctic, which runs none:
+     its dense attention route), the MoE's picks pinned to the kernel
+     route's, within the stated limits; where the model is chaotic at the
+     phase's depth (zamba2, whisper, llava), printed beside its noise floor
+     and held instead at a few layers (`TRAIN_HELD_LAYERS`).
 
 Phases 2-4, 14 and 15 are the paths that run the EI/argmax kernel, phases 6 and
 12 the paths that run the tensor-core flash-attention kernel (the bfloat16
@@ -141,7 +159,8 @@ models; the CUDA-core one must not run there), phase 5's float32 op the
 path of the CUDA-core one, phases 9, 10 and 13 the paths that run the SSD
 kernel, phase 11 the RMSNorm op, phases 16-20 the other families' paths
 of the tensor-core flash kernel (each forward but arctic's) and of the SSD
-kernel (zamba2's forward and prefill).  Each sets the launch counts to 0 just
+kernel (zamba2's forward and prefill), phases 21-24 their training paths
+(K2 in each but arctic's, K3 in zamba2's).  Each sets the launch counts to 0 just
 before its run, reads them just after, and fails unless its kernel ran
 exactly once per fused BO step (phases 2-4), once per lockstep chunk step
 of a fused fleet (phase 14: one launch for all the chunk's rows; phase 15:
@@ -152,8 +171,9 @@ hybrid's site or a decoder layer, never for arctic; K3 once an SSM layer),
 once per layer of the prefill and never in a decode step (phases 10 and
 18; K2 never while serving), once per call of the op (phases 5 and 11),
 or
-twice per layer and microbatch of a training step, in the forward and in
-the remat recompute (phases 12 and 13).  Qwen3 serving runs no kernel,
+twice per layer (or hybrid site) and microbatch of a training step, in
+the forward and in the remat recompute (phases 12, 13, 21, 23 and 24;
+once under whisper's remat "none", phase 22).  Qwen3 serving runs no kernel,
 as in the reference (prefill and decode attend through the cache); phase 7
 checks that too.
 
@@ -201,7 +221,7 @@ JOB_ORDER = [  # Table II row order (benchmarks/common.py)
     "terasort/hadoop/bigdata", "terasort/hadoop/huge",
 ]
 THRESHOLDS = (1.2, 1.1, 1.0)
-SEEDS = range(8)  # Table II repetitions on the card (the paper averages 200)
+SEEDS = range(4)  # Table II repetitions on the card (the paper averages 200)
 PAPER_QUOTIENT = {1.2: 0.379, 1.1: 0.402, 1.0: 0.492}  # table2_iterations.py
 CATALOG_N, CATALOG_D, CATALOG_B = 131072, 6, 24
 KERNEL_CASES = [  # (name, n, d, capacity B, observed k)
@@ -1706,6 +1726,14 @@ FAMILY_FA_SHAPES = {
     "whisper-tiny": (4, 512, 6, 6, 64),  # the decoder
     "llava-next-mistral-7b": (1, 3584, 32, 8, 128),  # 2880 patches + 704 text tokens
 }
+# K2's shapes on the other families' training paths (phases 21-24): one
+# microbatch, bfloat16, causal.
+TRAIN_FA_SHAPES = {
+    "hybrid_train": (2, 4096, 32, 32, 64),  # zamba2: 4 x 4096 in 2 microbatches
+    "encdec_train": (8, 512, 6, 6, 64),  # whisper's decoder, batch 8
+    "vlm_train": (2, 3584, 32, 8, 128),  # llava: 2880 patches + 704 text tokens, batch 2
+    "kimi_train": (1, 4096, 64, 8, 112),  # kimi-k2: 4 x 4096 in 4, the forward's shape
+}
 # The plain version's tile loop is too long to capture in a CUDA graph
 # past this many (query tile, key tile) pairs: timed by events alone.
 PLAIN_GRAPH_MAX_PAIRS = 4096
@@ -1834,8 +1862,13 @@ def phase_flash(dev, report) -> dict:
                                  library_ms=lib_ms, library_device_ms=l_dev, sdpa_err=err_lib,
                                  **bound)
             del q, k, v, out
-        shapes = {}
-        for arch, (sb, st, sh, skv, sd) in FAMILY_FA_SHAPES.items():
+        shapes, timed = {}, {}
+        for arch, (sb, st, sh, skv, sd) in {**FAMILY_FA_SHAPES, **TRAIN_FA_SHAPES}.items():
+            if (sb, st, sh, skv, sd) in timed:  # a shape timed already (on another path)
+                shapes[arch] = shapes[timed[sb, st, sh, skv, sd]]
+                print(f"  {arch}'s shape is {timed[sb, st, sh, skv, sd]}'s: timed there")
+                continue
+            timed[sb, st, sh, skv, sd] = arch
             q, k, v = fa_inputs(dev, 300 + st + sh, sb, st, sh, skv, sd, "bfloat16")
             shape = f"B={sb} T={st} H={sh} KV={skv} D={sd}"
             name = f"{arch} forward shape {shape} causal bfloat16"
@@ -1989,37 +2022,40 @@ def profile_summary(prof, calls: int, wall_ms: float, kernel_names=(), ranges=()
     """Per call of a `torch.profiler` run of ``calls`` calls: device busy
     time, the named kernels' time and share of it, the device's idle share
     against ``wall_ms`` (per call), launches, and the largest device kernels
-    and host ops.  ``ranges``: names of `record_function` ranges, whose
-    device-side annotations span kernels and are not kernels themselves:
-    ``ranges_ms`` gives, per call, the device time of the kernels launched
-    inside each, where the profiler reports it (else None)."""
+    and host ops (``aten::`` ops, inclusive of the ops they call).
+    ``ranges``: names of `record_function` ranges: ``ranges_ms`` gives, per
+    call, the device time their annotations span (the kernels launched
+    inside each, and the gaps between them), where the profiler reports it
+    (else None).  Read from the profiler's raw events: `key_averages()`
+    builds a Python object per event, about 40 s for 10^5 kernels."""
     from torch.autograd import DeviceType
 
     busy = kern = 0.0
-    by_name = {}
-    events = prof.key_averages()
-    for name, us in _device_events(events):
-        if name in ranges:
-            continue
-        busy += us
-        by_name[name[:60]] = by_name.get(name[:60], 0.0) + us / calls / 1e3
-        if any(k in name for k in kernel_names):
-            kern += us
-    launches = sum(e.count for e in events
-                   if e.device_type == DeviceType.CUDA and e.key not in ranges)
-    ranges_ms = {}
-    for r in ranges:
-        us = [getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
-              for e in events if e.key == r]
-        ranges_ms[r] = max(us) / calls / 1e3 if us and max(us) > 0 else None
-    host = sorted(((e.self_cpu_time_total / calls / 1e3, e.key) for e in events
-                   if e.key.startswith("aten::")), reverse=True)[:6]
+    launches = 0
+    by_name, host = {}, {}
+    range_ns = {r: 0 for r in ranges}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == DeviceType.CUDA:
+            if e.is_user_annotation():
+                if name in range_ns:
+                    range_ns[name] += e.duration_ns()
+                continue
+            us = e.duration_ns() / 1e3
+            busy += us
+            launches += 1
+            by_name[name[:60]] = by_name.get(name[:60], 0.0) + us / calls / 1e3
+            if any(k in name for k in kernel_names):
+                kern += us
+        elif name.startswith("aten::"):
+            host[name] = host.get(name, 0.0) + e.duration_ns() / calls / 1e6
     busy_ms, kern_ms = busy / calls / 1e3, kern / calls / 1e3
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "kernel_ms": kern_ms,
             "kernel_share": kern_ms / busy_ms if busy_ms else None,
             "idle_share": 1 - busy_ms / wall_ms, "device_kernels": launches / calls,
             "top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6]),
-            "top_host_ops_ms": {name: ms for ms, name in host}, "ranges_ms": ranges_ms}
+            "top_host_ops_ms": dict(sorted(host.items(), key=lambda kv: -kv[1])[:6]),
+            "ranges_ms": {r: ns / calls / 1e6 if ns else None for r, ns in range_ns.items()}}
 
 
 def forward_breakdown(fn, kernel_names=FLASH_KERNEL_NAMES) -> dict:
@@ -2176,6 +2212,7 @@ SSD_PATHS = {  # the kernel's (arch, batch, sequence length) on each path that r
     "ssm_train": (SSM_ARCH, 2, 4096),  # a microbatch of phase 13's training step
     "hybrid_forward": (HYBRID_ARCH, 1, 32768),  # phase 18
     "hybrid_serve": (HYBRID_ARCH, 8, 2048),  # phase 18's prefill
+    "hybrid_train": (HYBRID_ARCH, 2, 4096),  # a microbatch of phase 21's training step
 }
 SSD_KERNEL_NAMES = ("ssd_diag_wgmma_kernel", "ssd_cumsum_kernel")
 
@@ -2681,36 +2718,76 @@ def phase_rmsnorm(dev, report) -> dict:
     return {"launches_per_call": launches // len(cases), "times": times}
 
 
-# ---------------------------------------------------------------- phases 12 and 13
+# ---------------------------------------------------------------- phases 12, 13 and 21-24
 
 TRAIN_STEPS = 3
-TRAIN_PATHS = {  # the training cells: (arch, layers kept or None for all, global batch, T, microbatches)
-    "train": ("qwen3-8b", 8, 2, 4096, 2),
-    "ssm_train": ("mamba2-370m", None, 4, 4096, 2),
+TRAIN_PATHS = {  # the training cells: (arch, layers kept or None for all, global batch,
+    # positions a sequence, microbatches, experts kept or None for all)
+    "train": ("qwen3-8b", 8, 2, 4096, 2, None),
+    "ssm_train": ("mamba2-370m", None, 4, 4096, 2, None),
+    "hybrid_train": ("zamba2-1.2b", None, 4, 4096, 2, None),
+    "encdec_train": ("whisper-tiny", None, 8, 512, 1, None),  # and 1500 frames a sequence
+    "vlm_train": ("llava-next-mistral-7b", 8, 2, 3584, 1, None),  # 2880 patches + 704 text
+    "kimi_train": ("kimi-k2-1t-a32b", 2, 4, 4096, 4, 32),
+    "arctic_train": ("arctic-480b", 2, 4, 4096, 4, 16),
 }
-TRAIN_KERNELS = {  # the kernel each runs, its device names, its backward's profiler range
-    # and the route counter that must carry every launch (None: one route)
-    "train": ("flash_attention", FLASH_KERNEL_NAMES, "flash_attention.backward",
-              "tensor_core_launches"),
-    "ssm_train": ("ssd_diag", SSD_KERNEL_NAMES, "ssd_diag.backward", None),
+TRAIN_PHASES = {  # phase number: (name, the training paths it runs)
+    12: ("train", ("train",)),
+    13: ("ssm_train", ("ssm_train",)),
+    21: ("hybrid_train", ("hybrid_train",)),
+    22: ("encdec_train", ("encdec_train",)),
+    23: ("vlm_train", ("vlm_train",)),
+    24: ("moe_train", ("kimi_train", "arctic_train")),
 }
+# Why each cut (reckoned from the spec trees): Qwen3-8B's AdamW state is
+# 16 B a parameter, 131 GB in all; llava's 116 GB (0.87 GB a layer, 1.05
+# GB outside them), so 8 of its 32 layers (about 32 GB with gradients and
+# moments).  One full-width MoE layer does not train on one card: arctic's
+# is 27.2 GB of bfloat16 parameters (kimi-k2's 34.2 GB), its bfloat16
+# gradients as much again, and the float32 cast before clipping twice that;
+# so two layers (the stacked clip and the (L, d) factoring run) with the
+# experts cut, every width kept: kimi-k2 to 32 of 384, arctic to 16 of 128.
+TRAIN_CUTS = {
+    "train": "8 of 36 layers: AdamW's state of the 36 is 131 GB",
+    "vlm_train": "8 of 32 layers: AdamW's state of the 32 is 116 GB",
+    "kimi_train": "2 of 61 layers, 32 of 384 experts: one full layer is 34.2 GB of bf16 "
+                  "parameters, 137 GB with its gradients and their f32 cast",
+    "arctic_train": "2 of 35 layers, 16 of 128 experts: one full layer is 27.2 GB of bf16 "
+                    "parameters, 109 GB with its gradients and their f32 cast",
+}
+TRAIN_DEVICE_NAMES = {"flash_attention": FLASH_KERNEL_NAMES, "ssd_diag": SSD_KERNEL_NAMES}
+TRAIN_BACKWARD_RANGES = {"flash_attention": "flash_attention.backward",
+                         "ssd_diag": "ssd_diag.backward"}
 # Step 1's cross-entropy at random initialization: about ln(V) + σ²/2 for
 # logits of spread σ about 1 (the unembedding's fan-in scaling of a
 # normalized state); it must lie within 1 of ln(V).
 TRAIN_CE_SLACK = 1.0
 # The first step against the same step through the route without the
-# kernel (qwen3: the dense attention route; mamba2: the einsum route of the
-# SSD term), on the same parameters and batch.  Both compute in bfloat16;
-# they differ where a float32 difference carries a value across a bfloat16
-# rounding boundary, which propagates through the later layers.  On the
-# CPU, at full width (vocab cut to 4096, 2 x 256 tokens in 2 microbatches),
-# qwen3's two routes give losses 2.7e-5 and 2.3e-5 apart (relative) at 2
-# and 4 layers, gradient norms 2.4e-5 and 6.1e-6; mamba2's at 48 layers (2 x
-# 512 tokens) 8.0e-5 and 7.3e-5.  Longer sequences and more layers carry a
-# difference further: allow 2^-9 relative for the loss (24x the largest)
-# and 2^-6 for the gradient norm (200x).
+# kernels (qwen3: the dense attention route; mamba2: the einsum route of the
+# SSD term; the other families: the kernels' plain versions, `plain_routes`,
+# arctic, which runs none, its dense attention route in place of the
+# chunked one; the MoE picks pinned to the kernel route's), on the same
+# parameters and batch.  Both compute in bfloat16; they differ where a
+# float32 difference carries a value across a bfloat16 rounding boundary,
+# which propagates through the later layers.  On the CPU, at full width
+# (vocab cut to 4096, 2 x 256 tokens in 2 microbatches), qwen3's two routes
+# give losses 2.7e-5 and 2.3e-5 apart (relative) at 2 and 4 layers,
+# gradient norms 2.4e-5 and 6.1e-6; mamba2's at 48 layers (2 x 512 tokens)
+# 8.0e-5 and 7.3e-5.  Longer sequences and more layers carry a difference
+# further: allow 2^-9 relative for the loss (24x the largest) and 2^-6 for
+# the gradient norm (200x).  At the reference's initializers zamba2,
+# whisper and llava are chaotic at the depths trained here, as phases 16-20
+# found of their forwards: their gradient norm grows with depth (the phase
+# prints it at both depths), and scaling the inputs by one bfloat16 step
+# (`nudged_inputs`) moves it about as far as the two routes part, so no
+# limit at that depth could fail a wrong gradient.  There the comparison
+# is printed beside that one-nudge noise floor and not held, and step 1 is
+# held at the stated limits on the same configuration cut to
+# `TRAIN_HELD_LAYERS` layers (full width, the same batch and seed; zamba2
+# keeps one shared-block site), where the model is not chaotic.
 TRAIN_LOSS_REL = 2.0**-9
 TRAIN_GRAD_NORM_REL = 2.0**-6
+TRAIN_HELD_LAYERS = {"hybrid_train": 6, "encdec_train": 1, "vlm_train": 1}
 
 
 def kernel_counters() -> dict:
@@ -2722,6 +2799,16 @@ def kernel_counters() -> dict:
 
     return {"ei_argmax": ei_argmax_cuda, "flash_attention": flash_attention_cuda,
             "ssd_diag": ssd_diag_cuda, "rmsnorm": rmsnorm_cuda}
+
+
+def train_launches(cfg, mb: int) -> dict:
+    """K2 and K3 launches of one training step: a forward's
+    (`family_launches`) for each microbatch, twice under remat (the forward
+    and the backward's recompute; the configs' policies are "full" and
+    "none")."""
+    per = 1 if cfg.remat_policy == "none" else 2
+    fwd = family_launches(cfg)
+    return {"flash_attention": per * mb * fwd["flash"], "ssd_diag": per * mb * fwd["ssd"]}
 
 
 def fingerprint(tree) -> list:
@@ -2747,13 +2834,16 @@ def fingerprint(tree) -> list:
 
 
 class reference_route:
-    """The training cell's model on the route without its kernel: for qwen3
+    """The training cell's model on the route without its kernels: for qwen3
     a second `Model` over the same parameter tensors with the dense
     attention route; for mamba2 the same model with `ssm_apply` held at its
-    einsum default (the route the reference's `Model` takes)."""
+    einsum default (the route the reference's `Model` takes); for the other
+    families the same model with the kernels' plain versions in their place
+    (`plain_routes`), and for arctic, which runs no kernel, its dense
+    attention route."""
 
-    def __init__(self, path, model):
-        self.path, self.model = path, model
+    def __init__(self, path, model, positions):
+        self.path, self.model, self.positions = path, model, positions
 
     def __enter__(self):
         from repro_torch.models import ssm as S
@@ -2762,19 +2852,161 @@ class reference_route:
         if self.path == "train":
             return Model(self.model.cfg.replace(attention_impl="dense"),
                          params=self.model.params_tree(), device=self.model.device)
-        self.apply = S.ssm_apply
-        S.ssm_apply = lambda p, cfg, x, use_kernel=False, **kw: self.apply(
-            p, cfg, x, use_kernel=False, **kw)
-        return self.model
+        if self.path == "ssm_train":
+            self.apply = S.ssm_apply
+            S.ssm_apply = lambda p, cfg, x, use_kernel=False, **kw: self.apply(
+                p, cfg, x, use_kernel=False, **kw)
+            return self.model
+        kernels = train_launches(self.model.cfg, 1)
+        self.routes = plain_routes(self.model, self.positions,
+                                   "plain" if any(kernels.values()) else "dense")
+        return self.routes.__enter__()
 
     def __exit__(self, *exc):
         from repro_torch.models import ssm as S
 
-        if self.path != "train":
+        if self.path == "ssm_train":
             S.ssm_apply = self.apply
+        elif self.path != "train":
+            self.routes.__exit__(*exc)
 
 
-def phase_training(dev, report, path) -> int:
+class held_launches:
+    """Hold every K2 and K3 launch, as it happens, to its plain version on
+    its own inputs, at phases 16-20's limits (`family_forward`); ``errs``
+    keeps the largest differences."""
+
+    def __init__(self, what):
+        self.what, self.errs = what, {"flash": [], "flash_rel_v": [], "ssd": []}
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.kernels.flash_attention.ops import flash_attention_plain
+        from repro_torch.kernels.ssd.ops import ssd_diag_plain
+        from repro_torch.models import layers as L
+        from repro_torch.models import ssm as S
+
+        self.saved = flash, ssd = L.flash_attention, S.ssd_diag_chunk
+        errs = self.errs
+
+        def checked_flash(q, k, v, causal=True, *rest):
+            out = flash(q, k, v, causal, *rest)
+            with torch.no_grad():
+                qd, kd, vd = q.detach(), k.detach(), v.detach()
+                plain = flash_attention_plain(qd, kd, vd, causal=causal, block_q=PLAIN_TILE,
+                                              block_k=PLAIN_TILE)
+                vmax = float(vd.float().abs().max())
+                err = close_on_device(plain, out.detach(), rtol=FA_TOL["bfloat16"]["rtol"],
+                                      atol=FLASH_ATOL_REL_V * vmax,
+                                      what=f"{self.what} flash launch {len(errs['flash'])}")
+            errs["flash"].append(err)
+            errs["flash_rel_v"].append(err / vmax)
+            return out
+
+        def checked_ssd(*args):
+            out = ssd(*args)
+            with torch.no_grad():
+                plain = ssd_diag_plain(*(a.detach() for a in args))
+                errs["ssd"].append(close_on_device(plain, out.detach(), **SSD_TOL,
+                                                   what=f"{self.what} SSD launch "
+                                                        f"{len(errs['ssd'])}"))
+            return out
+
+        L.flash_attention, S.ssd_diag_chunk = checked_flash, checked_ssd
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers as L
+        from repro_torch.models import ssm as S
+
+        L.flash_attention, S.ssd_diag_chunk = self.saved
+
+
+class recorded_routes:
+    """Record, in call order, `moe_route`'s results (for `pinned_routing`)."""
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+
+        self.orig, self.routes = L.moe_route, []
+
+        def record(*args):
+            r = self.orig(*args)
+            self.routes.append({k: (v.detach() if hasattr(v, "detach") else v)
+                                for k, v in r.items()})
+            return r
+
+        L.moe_route = record
+        return self.routes
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers as L
+
+        L.moe_route = self.orig
+
+
+def grad_metrics(model, ex, batch) -> dict:
+    """Loss and gradient norm of the step's gradient (`make_grad_fn`, no
+    update), as floats."""
+    from repro_torch.runtime.steps import make_grad_fn
+
+    grads, m = make_grad_fn(model, ex)(model.params_tree(), batch)
+    del grads
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+
+
+def with_layers(cfg, n: int):
+    """``cfg`` cut to ``n`` layers (an encoder-decoder's encoder too)."""
+    import dataclasses
+
+    cfg = cfg.replace(num_layers=n)
+    if cfg.encoder is not None:
+        cfg = cfg.replace(encoder=dataclasses.replace(cfg.encoder, num_layers=n))
+    return cfg
+
+
+def routes_apart(path, model, ex, batch, positions, counters) -> dict:
+    """Step 1's gradient (no update) of ``model`` on the kernels' route and
+    on the route without them (`reference_route`), on the same parameters
+    and batch, the MoE's picks pinned to the kernels' route's: each route's
+    loss and gradient norm, their relative differences, the kernel route's
+    launches and MoE picks, the picks that would differ, the other route's
+    seconds."""
+    before = {k: c.launches for k, c in counters.items()}
+    with recorded_routes() as routes:
+        first = grad_metrics(model, ex, batch)
+    after_kernel = {k: c.launches for k, c in counters.items()}
+    t0 = time.perf_counter()
+    with reference_route(path, model, positions) as other, pinned_routing(routes) as flips:
+        other_m = grad_metrics(other, ex, batch)
+        del other
+    seconds = time.perf_counter() - t0
+    if any(c.launches != after_kernel[k] for k, c in counters.items()):
+        raise AssertionError("the route without the kernels launched a kernel")
+    return {"kernel_route": first, "other_route": other_m,
+            "rel": {k: abs(first[k] - other_m[k]) / abs(other_m[k]) for k in first},
+            "launches": {k: after_kernel[k] - before[k] for k in counters},
+            "routes": routes, "flips": sum(flips), "seconds": seconds}
+
+
+def phase_train(dev, report, phase) -> dict:
+    """One training phase: each of its paths (`train_path`); returns each
+    path's kernel launches a step."""
+    import torch
+
+    name, paths = TRAIN_PHASES[phase]
+    t_phase = time.perf_counter()
+    out = {}
+    for path in paths:
+        out[path] = train_path(dev, report, path, phase)
+        torch.cuda.empty_cache()
+    print(f"  phase {phase} ({name}) wall time {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def train_path(dev, report, path, phase) -> dict:
+    import dataclasses
     import math
     import shutil
     import tempfile
@@ -2785,24 +3017,33 @@ def phase_training(dev, report, path) -> int:
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.data.pipeline import SyntheticDataset, shard_batch
     from repro_torch.models.model import Model
+    from repro_torch.models.spec import leaves
     from repro_torch.runtime.loop import TrainLoop
-    from repro_torch.runtime.steps import init_train_state, make_grad_fn, make_train_step
+    from repro_torch.runtime.steps import (init_train_state, make_grad_fn, make_train_step,
+                                           train_state_specs)
 
-    arch, layers, gbatch, t, mb = TRAIN_PATHS[path]
-    kname, device_names, backward_range, route_attr = TRAIN_KERNELS[path]
+    arch, layers, gbatch, t, mb, experts = TRAIN_PATHS[path]
     counters = kernel_counters()
-    counter = counters[kname]
     spec = C.get(arch)
-    cfg = spec.model if layers is None else spec.model.replace(num_layers=layers)
+    cfg = spec.model
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    if experts is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, num_experts=experts))
     ex = spec.exec.replace(num_microbatches=mb, total_steps=TRAIN_STEPS)
-    per_step = 2 * cfg.num_layers * mb
-    tokens = gbatch * t
-    phase = {"train": 12, "ssm_train": 13}[path]
-    marks = [time.perf_counter()]  # the phase's parts, for the time it takes
-    print(f"phase {phase}: {arch} training, {cfg.num_layers} of {spec.model.num_layers} layers, "
-          f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, {cfg.param_dtype} params, "
-          f"{cfg.compute_dtype} compute, {ex.optimizer}, remat {cfg.remat_policy}, global batch "
-          f"{gbatch} x {t} in {mb} microbatches, {TRAIN_STEPS} steps")
+    want = train_launches(cfg, mb)
+    moe = cfg.family == "moe"
+    tokens = gbatch * t  # positions a step (a VLM's patches included; an encoder's frames not)
+    t0_phase = time.perf_counter()
+    marks = [t0_phase]  # the phase's parts, for the time it takes
+    extra = (f", {cfg.moe.num_experts} of {spec.model.moe.num_experts} experts (top "
+             f"{cfg.moe.top_k})" if moe else "")
+    print(f"phase {phase}: {arch} training, {cfg.num_layers} of {spec.model.num_layers} "
+          f"layers{extra}, d_model {cfg.d_model}, vocab {cfg.vocab_size}, {cfg.param_dtype} "
+          f"params, {cfg.compute_dtype} compute, {ex.optimizer}"
+          f"{f', {ex.accum_dtype} accumulation' if ex.accum_dtype else ''}, remat "
+          f"{cfg.remat_policy}, global batch {gbatch} x {t} in {mb} microbatches, "
+          f"{TRAIN_STEPS} steps; cut: {TRAIN_CUTS.get(path, 'none')}")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = Model(cfg, device=dev, seed=0)
@@ -2816,40 +3057,48 @@ def phase_training(dev, report, path) -> int:
     def place(batch):
         return shard_batch(batch, dev)
 
-    # The route without the kernel: the first step's loss and gradient norm,
-    # before any update, on the same parameters and batch.
-    before = {k: c.launches for k, c in counters.items()}
-    with reference_route(path, model) as other:
-        t0 = time.perf_counter()
-        grads, om = make_grad_fn(other, ex)(other.params_tree(), place(ds.batch_at(0)))
-        other_loss, other_norm = float(om["loss"]), float(om["grad_norm"])
-        other_s = time.perf_counter() - t0
-        del grads, other
-    if any(c.launches != before[k] for k, c in counters.items()):
-        raise AssertionError("the route without the kernel launched a kernel")
+    # Step 1's gradient against the route without the kernels; a chaotic
+    # model's beside its noise floor, and held at `TRAIN_HELD_LAYERS`.
+    batch0 = place(ds.batch_at(0))
+    full = routes_apart(path, model, ex, batch0, t, counters)
+    first, other_m, rel = full["kernel_route"], full["other_route"], full["rel"]
+    flips, other_s = full["flips"], full["seconds"]
+    limits, floor, shallow = (TRAIN_LOSS_REL, TRAIN_GRAD_NORM_REL), None, None
+    if path in TRAIN_HELD_LAYERS:
+        with pinned_routing(full["routes"]), nudged_inputs():
+            nudged = grad_metrics(model, ex, batch0)
+        floor = {k: abs(nudged[k] - first[k]) / abs(first[k]) for k in first}
+        few = with_layers(cfg, TRAIN_HELD_LAYERS[path])
+        shallow = routes_apart(path, Model(few, device=dev, seed=0), ex, batch0, t, counters)
+        del shallow["routes"]
+        shallow["layers"] = few.num_layers
+        if shallow["launches"] != dict({k: 0 for k in counters}, **train_launches(few, mb)):
+            raise AssertionError(f"{few.num_layers} layers launched {shallow['launches']}")
+    held_rel = rel if shallow is None else shallow["rel"]
+    del batch0, full["routes"]
     torch.cuda.empty_cache()
 
     marks.append(time.perf_counter())
     state = init_train_state(model, ex)
     step_fn = make_train_step(model, ex)
-    steps = []  # per step: start and end events, launches of the path's kernel, wall seconds
-
-    def route_count():
-        return getattr(counter, route_attr) if route_attr else counter.launches
+    steps = []  # per step: start and end events, launches by kernel, wall seconds
+    fa = counters["flash_attention"]
 
     def timed_step(state, batch):
-        launched, routed = counter.launches, route_count()
+        launched = {k: c.launches for k, c in counters.items()}
+        tc = fa.tensor_core_launches
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         a.record()
         state, m = step_fn(state, batch)
         b.record()
         loss = float(m["loss"])  # waits for the step, as the loop does
-        steps.append(dict(events=(a, b), launches=counter.launches - launched,
-                          routed=route_count() - routed, wall_s=time.perf_counter() - t0,
-                          loss=loss))
+        steps.append(dict(events=(a, b), wall_s=time.perf_counter() - t0, loss=loss,
+                          launches={k: c.launches - launched[k] for k, c in counters.items()},
+                          tensor_core=fa.tensor_core_launches - tc))
         return state, m
 
+    held = held_launches(arch)
     ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         loop = TrainLoop(train_step=timed_step, batch_at=ds.batch_at, place_batch=place,
@@ -2862,7 +3111,11 @@ def phase_training(dev, report, path) -> int:
         metrics = []
 
         def keep(state, batch):
-            state, m = timed_step(state, batch)
+            if metrics:
+                state, m = timed_step(state, batch)
+            else:  # step 1: every kernel launch held to its plain version
+                with held:
+                    state, m = timed_step(state, batch)
             metrics.append({k: float(v) for k, v in m.items()})
             return state, m
 
@@ -2889,82 +3142,129 @@ def phase_training(dev, report, path) -> int:
         restored_equal = fingerprint(resumed.state) == fp2
         resumed.state, _ = keep(resumed.state, place(ds.batch_at(2)))  # step 3 again
         marks.append(time.perf_counter())
-        prof = train_breakdown(lambda: step_fn(resumed.state, place(ds.batch_at(3))),
-                               device_names, backward_range)
+        # One microbatch's forward and backward, profiled (a whole step of the
+        # deeper models is 10^5 device kernels, a minute of summary).
+        micro = {k: v[:gbatch // mb] for k, v in place(ds.batch_at(3)).items()}
+        grad_one = make_grad_fn(model, ex.replace(num_microbatches=1))
+        names = tuple(n for k, ns in TRAIN_DEVICE_NAMES.items() if want[k] for n in ns)
+        ranges = tuple(TRAIN_BACKWARD_RANGES[k] for k in want if want[k])
+        prof = train_breakdown(lambda: grad_one(resumed.state["params"], micro), names, ranges)
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
     marks.append(time.perf_counter())
     parts = np.diff(marks)
 
+    specs_equal = None
+    if ex.optimizer == "adafactor":  # the state as allocated is the one the specs describe
+        got = {k: tuple(v.shape) for k, v in leaves(resumed.state["opt"].inner)}
+        specs = {k: s.shape for k, s in leaves(train_state_specs(model, ex)["opt"].inner)}
+        specs_equal = got == specs
     ev_ms = [s["events"][0].elapsed_time(s["events"][1]) for s in steps]
     walls = [s["wall_s"] * 1e3 for s in steps]
     tok_s = tokens / (float(np.median(walls[1:])) / 1e3)
-    first = metrics[0]
-    loss_rel = abs(first["loss"] - other_loss) / abs(other_loss)
-    norm_rel = abs(first["grad_norm"] - other_norm) / abs(other_norm)
+    loss_rel, norm_rel = rel["loss"], rel["grad_norm"]
     ln_v = math.log(cfg.vocab_size)
     for i, (s, m) in enumerate(zip(steps, metrics)):
         label = f"step {i + 1}" if i < 3 else "step 3 after the restore"
-        print(f"  {label}: loss {m['loss']:.6f} (ce {m['ce']:.6f}), grad norm "
-              f"{m['grad_norm']:.6f}, lr {m['lr']:.3e}; {s['launches']} {kname} launches "
-              f"({s['routed']} {route_attr or 'of its kernel'}); "
-              f"{ev_ms[i]:.1f} ms by CUDA events, {walls[i]:.1f} ms wall")
-    print(f"  peak allocated {peak / 1e9:.2f} GB over steps 1-3; {tokens} tokens a step, "
-          f"{tok_s:.1f} tokens/s (median wall of the steps after the first); checkpoint "
+        print(f"  {label}: loss {m['loss']:.6f} (ce {m['ce']:.6f}, aux {m['aux_loss']:.6f}), "
+              f"grad norm {m['grad_norm']:.6f}, lr {m['lr']:.3e}; launches "
+              f"{ {k: v for k, v in s['launches'].items() if v} } ({s['tensor_core']} on the "
+              f"tensor cores); {ev_ms[i]:.1f} ms by CUDA events, {walls[i]:.1f} ms wall")
+    print(f"  peak allocated {peak / 1e9:.2f} GB over steps 1-3; {tokens} positions a step, "
+          f"{tok_s:.1f} positions/s (median wall of the steps after the first); checkpoint "
           f"{ck_bytes} B, host snapshot and write {save_s:.1f} s, restore {restore_s:.1f} s")
-    print(f"  step 1 vs the route without the kernel ({other_s:.1f} s): loss {other_loss:.6f}, "
-          f"relative difference {loss_rel:.3e} (limit {TRAIN_LOSS_REL}); grad norm "
-          f"{other_norm:.6f}, relative difference {norm_rel:.3e} (limit {TRAIN_GRAD_NORM_REL}); "
-          f"step 1 ce {first['ce']:.4f} vs ln(V) {ln_v:.4f} (limit {TRAIN_CE_SLACK})")
+    errs = held.errs
+    if errs["flash"]:
+        print(f"  every K2 launch of step 1 ({len(errs['flash'])}) vs its plain version on its "
+              f"own q, k, v: max |diff| {max(errs['flash']):.3e}, at most "
+              f"{max(errs['flash_rel_v']):.3e} of the launch's largest |v| (limit "
+              f"{FLASH_ATOL_REL_V}, with rtol {FA_TOL['bfloat16']['rtol']})")
+    if errs["ssd"]:
+        print(f"  every K3 launch of step 1 ({len(errs['ssd'])}) vs its plain version on its "
+              f"own inputs: max |diff| {max(errs['ssd']):.3e} ({SSD_TOL})")
+    print(f"  step 1's gradient before the loop vs the route without the kernels ({other_s:.1f} s"
+          f"{f'; MoE picks pinned, {flips} would differ' if moe else ''}): loss "
+          f"{other_m['loss']:.6f}, relative difference {loss_rel:.3e}; grad norm "
+          f"{other_m['grad_norm']:.6f}, relative difference {norm_rel:.3e}; "
+          + (f"limits {limits[0]:.4g} and {limits[1]:.4g}" if shallow is None else
+             f"not held: chaotic at this depth, scaling the inputs by 1 + 2^-8 moves the "
+             f"kernels' route's loss by {floor['loss']:.3e} and its grad norm by "
+             f"{floor['grad_norm']:.3e}")
+          + f"; step 1 ce {metrics[0]['ce']:.4f} vs ln(V) {ln_v:.4f} (limit {TRAIN_CE_SLACK})")
+    if shallow is not None:
+        print(f"  held instead at {shallow['layers']} layer(s), full width, the same batch "
+              f"and seed: loss {shallow['other_route']['loss']:.6f}, relative difference "
+              f"{held_rel['loss']:.3e}; grad norm {shallow['other_route']['grad_norm']:.6f}, "
+              f"relative difference {held_rel['grad_norm']:.3e}; limits {limits[0]:.4g} and "
+              f"{limits[1]:.4g}")
+    print(f"  that gradient vs step 1 of the loop: loss {first['loss']!r} and "
+          f"{metrics[0]['loss']!r}, grad norm {first['grad_norm']!r} and "
+          f"{metrics[0]['grad_norm']!r}")
     print(f"  restore of step {start}: every tensor bit-equal {restored_equal}; step 3 loss "
-          f"{metrics[3]['loss']!r} vs uninterrupted {metrics[2]['loss']!r}")
-    print(f"  profiled step 4: wall {prof['wall_ms']:.1f} ms, device busy "
-          f"{prof['device_busy_ms']:.1f} ms (idle share {prof['idle_share']:.3f}), {kname} "
-          f"{prof['kernel_ms']:.1f} ms ({prof['kernel_share']:.3f} of device time), its "
-          f"backward through the oracle {prof['range_ms']} ms ({prof['range_share']} of device "
-          f"time), {prof['device_kernels']:.0f} device kernels")
+          f"{metrics[3]['loss']!r} vs uninterrupted {metrics[2]['loss']!r}"
+          + ("" if specs_equal is None else
+             f"; Adafactor's state names and shapes equal train_state_specs: {specs_equal}"))
+    print(f"  profiled microbatch (forward and backward, {gbatch // mb} x {t}): wall "
+          f"{prof['wall_ms']:.1f} ms, device busy {prof['device_busy_ms']:.1f} ms (idle share "
+          f"{prof['idle_share']:.3f}), K2/K3 {prof['kernel_ms']:.1f} ms "
+          f"({prof['kernel_share']} of device time), their backward through the oracle "
+          f"{prof['range_ms']} ms ({prof['range_share']} of device time), "
+          f"{prof['device_kernels']:.0f} device kernels")
     for name, ms in prof["top_kernels_ms"].items():
         print(f"    device {ms:.3f} ms  {name}")
     for name, ms in prof["top_host_ops_ms"].items():
         print(f"    host   {ms:.3f} ms  {name}")
-    print(f"  phase time: set-up and the route without the kernel {parts[0]:.1f} s, steps 1-3 "
-          f"with the checkpoint {parts[1]:.1f} s, restore and step 3 again {parts[2]:.1f} s, "
-          f"profiled step {parts[3]:.1f} s (its trace summary {prof['summary_s']:.1f} s)")
+    print(f"  path time {time.perf_counter() - t0_phase:.1f} s: set-up and the route without "
+          f"the kernels {parts[0]:.1f} s, steps 1-3 with the checkpoint {parts[1]:.1f} s, "
+          f"restore and step 3 again {parts[2]:.1f} s, profiled microbatch {parts[3]:.1f} s (its "
+          f"trace summary {prof['summary_s']:.1f} s)")
 
-    if any(s["launches"] != per_step or s["routed"] != per_step for s in steps):
-        raise AssertionError(f"{kname} launched {[s['launches'] for s in steps]} times a step, "
-                             f"{[s['routed'] for s in steps]} through {route_attr or 'its kernel'}; "
-                             f"want {per_step} (2 x {cfg.num_layers} layers x {mb} microbatches)")
-    if any(v for k, v in launched.items() if k != kname):
-        raise AssertionError(f"the training path launched other kernels: {launched}")
+    want_all = dict({k: 0 for k in counters}, **want)
+    if any(s["launches"] != want_all or s["tensor_core"] != want["flash_attention"]
+           for s in steps):
+        raise AssertionError(f"launches a step {[s['launches'] for s in steps]}, "
+                             f"{[s['tensor_core'] for s in steps]} on the tensor cores; want "
+                             f"{want} (a forward's per microbatch, twice under remat)")
+    if launched != {k: 3 * v for k, v in want_all.items()}:
+        raise AssertionError(f"steps 1-3 launched {launched}")
+    if len(errs["flash"]) != want["flash_attention"] or len(errs["ssd"]) != want["ssd_diag"]:
+        raise AssertionError(f"step 1's launches held: {len(errs['flash'])} K2, "
+                             f"{len(errs['ssd'])} K3")
     if not all(math.isfinite(m[k]) for m in metrics for k in ("loss", "grad_norm")):
         raise AssertionError("non-finite loss or gradient norm")
-    if abs(first["ce"] - ln_v) > TRAIN_CE_SLACK:
-        raise AssertionError(f"step 1 ce {first['ce']} is not near ln(V) = {ln_v}")
-    if loss_rel > TRAIN_LOSS_REL or norm_rel > TRAIN_GRAD_NORM_REL:
-        raise AssertionError("the kernel's route and the route without it disagree beyond the "
-                             "stated tolerance")
+    if abs(metrics[0]["ce"] - ln_v) > TRAIN_CE_SLACK:
+        raise AssertionError(f"step 1 ce {metrics[0]['ce']} is not near ln(V) = {ln_v}")
+    if held_rel["loss"] > limits[0] or held_rel["grad_norm"] > limits[1]:
+        raise AssertionError("the kernels' route and the route without them disagree beyond "
+                             "the limits")
     if start != 2 or not restored_equal:
         raise AssertionError(f"restore from step {start}: tensors bit-equal {restored_equal}")
     if metrics[3]["loss"] != metrics[2]["loss"]:
         raise AssertionError("step 3 after the restore differs from the uninterrupted step 3")
+    if specs_equal is False:
+        raise AssertionError("Adafactor's state differs from train_state_specs")
     report[path] = {
-        "params": n_params, "tokens_per_step": tokens, "launches_per_step": per_step,
+        "arch": arch, "layers": cfg.num_layers, "params": n_params, "positions_per_step": tokens,
+        "launches_per_step": want, "cut": TRAIN_CUTS.get(path),
         "steps": [dict(m, launches=s["launches"], events_ms=e, wall_ms=w)
                   for m, s, e, w in zip(metrics, steps, ev_ms, walls)],
-        "peak_bytes": int(peak), "tokens_per_s": tok_s, "checkpoint_bytes": ck_bytes,
-        "save_s": save_s, "restore_s": restore_s, "other_route": {
-            "loss": other_loss, "grad_norm": other_norm, "loss_rel": loss_rel,
-            "grad_norm_rel": norm_rel, "seconds": other_s},
-        "breakdown": prof, "phase_parts_s": parts.tolist(),
+        "peak_bytes": int(peak), "positions_per_s": tok_s, "checkpoint_bytes": ck_bytes,
+        "save_s": save_s, "restore_s": restore_s, "kernel_route_first": first,
+        "other_route": dict(other_m, loss_rel=loss_rel, grad_norm_rel=norm_rel,
+                            seconds=other_s, moe_picks_differing=flips),
+        "limits": limits, "noise_floor": floor, "held_shallow": shallow,
+        "launch_errs": {k: max(v) if v else None for k, v in errs.items()},
+        "adafactor_specs_equal": specs_equal, "breakdown": prof,
+        "phase_parts_s": parts.tolist(), "seconds": time.perf_counter() - t0_phase,
     }
-    return per_step
+    return want
 
 
-def train_breakdown(fn, kernel_names, backward_range) -> dict:
-    """One training step under `torch.profiler` (`profile_summary`), and the
-    device time of the kernels launched inside the backward's profiler
-    range (autograd through the oracle), where the profiler reports it."""
+def train_breakdown(fn, kernel_names, backward_ranges) -> dict:
+    """One call of ``fn`` (a microbatch's gradient) under `torch.profiler`
+    (`profile_summary`), and the device time of the kernels launched inside
+    the backward's profiler ranges (autograd through the oracle), where the
+    profiler reports it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2975,12 +3275,12 @@ def train_breakdown(fn, kernel_names, backward_range) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
-    out = profile_summary(prof, 1, wall, kernel_names, ranges=(backward_range,))
+    out = profile_summary(prof, 1, wall, kernel_names, ranges=backward_ranges)
     out["summary_s"] = time.perf_counter() - t0
-    range_ms = out["ranges_ms"][backward_range]
-    out["range_ms"] = range_ms if range_ms is not None else "not measured"
-    out["range_share"] = (range_ms / out["device_busy_ms"] if range_ms is not None
-                          else "not measured")
+    got = [v for v in out["ranges_ms"].values() if v is not None]
+    measured = len(got) == len(backward_ranges)  # none to measure where no kernel runs
+    out["range_ms"] = sum(got) if measured else "not measured"
+    out["range_share"] = sum(got) / out["device_busy_ms"] if measured else "not measured"
     return out
 
 
@@ -3035,6 +3335,8 @@ def family_launches(cfg) -> dict:
     under chunked attention; K3 once per SSM layer."""
     if cfg.family == "hybrid":
         return {"flash": -(-cfg.num_layers // cfg.hybrid_attn_every), "ssd": cfg.num_layers}
+    if cfg.family == "ssm":
+        return {"flash": 0, "ssd": cfg.num_layers}
     flash = 0 if cfg.attention_impl == "chunked" else cfg.num_layers
     return {"flash": flash, "ssd": 0}
 
@@ -3215,11 +3517,8 @@ def family_forward(dev, arch, phase) -> dict:
 
     from repro_torch import configs as C
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-    from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_plain
     from repro_torch.kernels.ssd.kernel import ssd_diag_cuda
-    from repro_torch.kernels.ssd.ops import ssd_diag_chunk, ssd_diag_plain
     from repro_torch.models import layers as L
-    from repro_torch.models import ssm as S
     from repro_torch.models.model import Model
 
     cfg = family_cfg(arch)
@@ -3241,61 +3540,34 @@ def family_forward(dev, arch, phase) -> dict:
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB), {cfg.compute_dtype} compute, attention "
           f"{cfg.attention_impl}; forward at B={b}, {positions} positions")
     want = family_launches(cfg)
-    errs = {"flash": [], "flash_rel_v": [], "ssd": [], "chunked": []}
-    drops, routes = [], []  # the MoE layers' drops and routing in the counted forward
-
-    # Every launch held to its plain version on its own inputs, as it happens
-    # (nothing kept).  Outputs are convex combinations of V's rows, so the
-    # absolute limit scales with the largest |v|: 2^-9 of it, half a
-    # bfloat16 step at that size, beside FA_TOL's 2^-7 of each output.
-    def checked_flash(q, k, v, causal=True, *rest):
-        out = flash_attention(q, k, v, causal, *rest)
-        plain = flash_attention_plain(q, k, v, causal=causal, block_q=PLAIN_TILE,
-                                      block_k=PLAIN_TILE)
-        vmax = float(v.float().abs().max())
-        err = close_on_device(plain, out, rtol=FA_TOL["bfloat16"]["rtol"],
-                              atol=FLASH_ATOL_REL_V * vmax,
-                              what=f"{arch} flash launch {len(errs['flash'])} vs plain")
-        errs["flash"].append(err)
-        errs["flash_rel_v"].append(err / vmax)
-        return out
-
-    def checked_ssd(*args):
-        out = ssd_diag_chunk(*args)
-        errs["ssd"].append(close_on_device(ssd_diag_plain(*args), out, **SSD_TOL,
-                                           what=f"{arch} SSD launch {len(errs['ssd'])}"))
-        return out
-
+    chunked_errs = []
     chunked = L._chunked_sdpa
 
+    # Arctic's chunked attention held to `_sdpa` on its own q, k, v (every
+    # K2 and K3 launch to its plain version: `held_launches`).
     def checked_chunked(q, k, v, **kw):
         out = chunked(q, k, v, **kw)
         dense = L._sdpa(q, k, v, **{n: w for n, w in kw.items() if n != "chunk"})
         atol = CHUNKED_ATOL_REL * float(dense.float().abs().max())
-        errs["chunked"].append(close_on_device(dense, out, rtol=0.0, atol=atol,
-                                               what=f"{arch} chunked vs dense"))
+        chunked_errs.append(close_on_device(dense, out, rtol=0.0, atol=atol,
+                                            what=f"{arch} chunked vs dense"))
         return out
 
-    route = L.moe_route
-
-    def recorded_route(*args):
-        r = route(*args)
-        drops.append(int((~r["keep"]).sum()))
-        routes.append(r)
-        return r
-
+    held = held_launches(arch)
     with torch.inference_mode():
-        L.flash_attention, S.ssd_diag_chunk, L.moe_route = checked_flash, checked_ssd, recorded_route
         L._chunked_sdpa = checked_chunked
         try:
-            reset_flash_counts(flash_attention_cuda)
-            ssd_diag_cuda.launches = 0
-            logits, aux = model.forward(batch)
-            torch.cuda.synchronize()
-            counts = {"flash": flash_counts(flash_attention_cuda), "ssd": ssd_diag_cuda.launches}
+            with held, recorded_routes() as routes:  # the MoE layers' routing
+                reset_flash_counts(flash_attention_cuda)
+                ssd_diag_cuda.launches = 0
+                logits, aux = model.forward(batch)
+                torch.cuda.synchronize()
+                counts = {"flash": flash_counts(flash_attention_cuda),
+                          "ssd": ssd_diag_cuda.launches}
         finally:
-            L.flash_attention, S.ssd_diag_chunk, L.moe_route = flash_attention, ssd_diag_chunk, route
             L._chunked_sdpa = chunked
+        errs = dict(held.errs, chunked=chunked_errs)
+        drops = [int((~r["keep"]).sum()) for r in routes]
         peak = torch.cuda.max_memory_allocated()
         print(f"    kernel launches in one forward: flash {counts['flash']}, SSD {counts['ssd']} "
               f"(want flash {want['flash']} on the tensor cores, SSD {want['ssd']}); peak "
@@ -3576,6 +3848,7 @@ def main(argv=None) -> int:
     failed = []
     times, fa_times, ssd_times, rn, fleet, service, launches = None, None, None, None, None, None, {}
     families = {name: None for name, _ in FAMILY_PHASES.values()}
+    trains = {name: None for name, _ in TRAIN_PHASES.values()}  # then by path: launches a step
     seq = {}  # phase 2's traces, which phase 14 holds the fleet against
     held = {}  # phase 14's catalog fleet and K1 times, which phase 15 holds the service to
     for name, phase in (
@@ -3592,10 +3865,11 @@ def main(argv=None) -> int:
         ("ssm_forward", lambda: phase_ssm_forward(dev, report)),
         ("ssm_serve", lambda: phase_ssm_serve(dev, report)),
         ("rmsnorm", lambda: phase_rmsnorm(dev, report)),
-        ("train", lambda: phase_training(dev, report, "train")),
-        ("ssm_train", lambda: phase_training(dev, report, "ssm_train")),
+        *((TRAIN_PHASES[n][0], lambda n=n: phase_train(dev, report, n)) for n in (12, 13)),
         *((FAMILY_PHASES[n][0], lambda n=n: phase_family(dev, report, n)) for n in FAMILY_PHASES),
+        *((TRAIN_PHASES[n][0], lambda n=n: phase_train(dev, report, n)) for n in (21, 22, 23, 24)),
     ):
+        t_phase = time.perf_counter()
         try:
             out = phase()
         except Exception:  # report every phase, then fail the run
@@ -3605,6 +3879,7 @@ def main(argv=None) -> int:
             continue
         finally:
             torch.cuda.empty_cache()
+            print(f"  [{name}: {time.perf_counter() - t_phase:.1f} s]")
         if name == "kernel":
             times = out
         elif name == "flash":
@@ -3619,6 +3894,8 @@ def main(argv=None) -> int:
             service = out
         elif name in families:
             families[name] = out
+        elif name in trains:
+            trains.update(out)
         elif name != "serve":
             launches[name] = out
     if args.out is not None:
@@ -3708,13 +3985,14 @@ def main(argv=None) -> int:
         ("flash_attention_wgmma", "flash_attention_wgmma.cu", "forward",
          fa_times["tensor_core"], launches["forward"]),
         ("flash_attention_wgmma", "flash_attention_wgmma.cu", "train",
-         fa_times["tensor_core"], launches["train"]),
+         fa_times["tensor_core"], trains["train"]["flash_attention"]),
         ("flash_attention", "flash_attention.cu", "op_float32",
          fa_times["cuda_core"], fa_times["cuda_core"]["op_launches"]),
     ))
     hybrid = families["hybrid"]
     ssd_launches = dict(launches, hybrid_forward=hybrid["forward"][HYBRID_ARCH]["launches"]["ssd"],
-                        hybrid_serve=hybrid["serve"][HYBRID_ARCH]["launches"]["ssd_diag"])
+                        hybrid_serve=hybrid["serve"][HYBRID_ARCH]["launches"]["ssd_diag"],
+                        **{p: trains[p]["ssd_diag"] for p in ("ssm_train", "hybrid_train")})
     # K2's tensor-core kernel on the other families' forwards (phases 16-20),
     # timed in phase 5 at each forward's shape (granite-8b's is Qwen3-8B's).
     fam_fwd = {arch: r for out in families.values() for arch, r in out["forward"].items()}
@@ -3735,7 +4013,29 @@ def main(argv=None) -> int:
         "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],  # scaled_dot_product_attention
         "library_device_ms": t["library_device_ms"],
-    } for arch, t in [("granite-8b", fa_times["tensor_core"]), *fa_times["shapes"].items()])
+    } for arch, t in [("granite-8b", fa_times["tensor_core"]), *fa_times["shapes"].items()]
+      if arch in FAMILY_FA_SHAPES or arch == "granite-8b")
+    # K2's tensor-core kernel on the other families' training paths (phases
+    # 21-24; arctic runs none), timed in phase 5 at each path's microbatch
+    # shape; launches a step.
+    kernels.extend({
+        "name": "flash_attention_wgmma",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_wgmma.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:113",
+        "path": path,
+        "shape": t["shape"],
+        "launches": trains[path]["flash_attention"],
+        "max_abs_err": t["max_abs_err"],
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "device_ms": t["device_ms"],
+        "plain_device_ms": t["plain_device_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],  # scaled_dot_product_attention
+        "library_device_ms": t["library_device_ms"],
+    } for path, t in fa_times["shapes"].items() if path in TRAIN_FA_SHAPES)
     kernels.extend({
         "name": "ssd_diag",
         "route": "cuda",

@@ -1,18 +1,18 @@
 """Training from the command line (port of `repro/launch/train.py`).
 
     python -m repro_torch.launch.train --arch qwen3-8b --smoke [--device cpu]
-    python -m repro_torch.launch.train --arch mamba2-370m --smoke [--device cpu]
+    python -m repro_torch.launch.train --arch kimi-k2-1t-a32b --smoke [--device cpu]
 
 Runs the fault-tolerant training loop (checkpoint/restart, preemption
 handling, straggler monitor) on the architecture's model, with random
 weights drawn from ``--seed`` on the device (the card unless ``--device
-cpu``) and the deterministic synthetic data pipeline.  ``--smoke`` takes
-the reduced same-family config.  The dense and SSM families train here;
-the moe, hybrid, encdec and vlm families serve but do not train yet and
-raise (ROADMAP Queue 1 item 11b: the MoE configs' Adafactor over the
-stacked tree, the aux-loss gradients).  The reference's ``--mesh`` runs
-the full config across a production mesh; the port has one device, and a
-mesh other than ``none`` raises (ROADMAP Queue 1 item 17).
+cpu``) and the deterministic synthetic data pipeline (with an encdec
+model's frames and a VLM's patches).  ``--smoke`` takes the reduced
+same-family config.  Every architecture of the registry trains, with its
+`ExecConfig`'s optimizer (the MoE configs: Adafactor over the reference's
+stacked tree).  The reference's ``--mesh`` runs the full config across a
+production mesh; the port has one device, and a mesh other than ``none``
+raises (ROADMAP Queue 1 item 17).
 """
 
 from __future__ import annotations
@@ -28,8 +28,6 @@ from repro_torch.runtime.loop import PreemptionGuard, TrainLoop
 from repro_torch.runtime.steps import init_train_state, make_train_step
 
 __all__ = ["main"]
-
-_TRAINED_FAMILIES = ("dense", "ssm")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
@@ -54,10 +52,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
             f"--mesh {args.mesh}: sharded training is not ported yet (ROADMAP Queue 1 item 17)")
 
     spec = C.smoke(args.arch) if args.smoke else C.get(args.arch)
-    if spec.model.family not in _TRAINED_FAMILIES:
-        raise NotImplementedError(
-            f"training the {spec.model.family} family ({args.arch}) is not ported yet "
-            f"(ROADMAP Queue 1 item 11b)")
     ex = spec.exec
     if args.learning_rate is not None:
         ex = ex.replace(learning_rate=args.learning_rate)

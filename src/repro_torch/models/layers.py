@@ -499,10 +499,36 @@ def embedding_specs(cfg: ModelConfig) -> Dict[str, TensorSpec]:
     return specs
 
 
+class _CastGather(torch.autograd.Function):
+    """``table.to(dtype)[index]`` (the reference's cast-then-gather) without
+    a ``dtype`` copy of the whole table: the rows are gathered, then cast.
+    The gradient is the reference's too: the rows' cotangents summed into
+    the table in ``dtype``, then cast to the table's dtype once (summing
+    after a cast to a bfloat16 table would round each row's share)."""
+
+    @staticmethod
+    def forward(ctx, table, index, dtype):
+        ctx.save_for_backward(index)
+        ctx.shape, ctx.dtype = table.shape, table.dtype
+        return table[index].to(dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (index,) = ctx.saved_tensors
+        out = torch.zeros(ctx.shape, dtype=grad.dtype, device=grad.device)
+        out.index_put_((index,), grad, accumulate=True)
+        return out.to(ctx.dtype), None, None
+
+
+def cast_gather(table: torch.Tensor, index: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Rows ``index`` of ``table`` in ``dtype``, as ``table.to(dtype)[index]``."""
+    if table.requires_grad and torch.is_grad_enabled():
+        return _CastGather.apply(table, index, dtype)
+    return table[index].to(dtype)
+
+
 def embed_apply(p: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    # Rows first, then the cast: the reference's cast-then-gather, without
-    # a compute-dtype copy of the whole table.
-    return p["embedding"][tokens].to(cfg.cdtype)
+    return cast_gather(p["embedding"], tokens, cfg.cdtype)
 
 
 def unembed_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:

@@ -57,12 +57,17 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.spec import TensorSpec, count_params, init_tree, leaves, tree_map
 from repro_torch.parallel.remat import remat_wrap
 
-__all__ = ["Model", "active_params", "total_params"]
+__all__ = ["STACKS", "Model", "active_params", "total_params"]
 
 Tree = Dict[str, Any]
 
 # The families whose backbone is the decoder stack alone.
 _DECODER_FAMILIES = ("dense", "moe", "vlm")
+
+# The paths of the stacks of blocks that the reference stacks along a
+# leading "layers" axis and the port holds as lists of per-layer dicts (a
+# model has those of its family).
+STACKS = (("layers",), ("encoder", "layers"), ("hybrid", "mamba"))
 
 
 def total_params(cfg: ModelConfig) -> int:
@@ -258,8 +263,7 @@ class Model(nn.Module):
         if self._num_patches(batch):
             x = torch.cat([self._stub(batch, "patches").to(cfg.cdtype), x], dim=1)
         if cfg.pos_emb == "learned":
-            # Rows first, then the cast: the reference's cast-then-gather.
-            x = x + params["pos_table"][positions].to(cfg.cdtype)
+            x = x + L.cast_gather(params["pos_table"], positions, cfg.cdtype)
         return x
 
     def _inputs(self, params: Tree, batch: Dict[str, Any],

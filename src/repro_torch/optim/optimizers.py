@@ -5,8 +5,8 @@ Two families, chosen per architecture by ``ExecConfig.optimizer``:
 
   * ``adamw``     — AdamW with f32 moments;
   * ``adafactor`` — factored second moment (row/column statistics over the
-                    last two dims of ≥2-D tensors), no momentum, update-norm
-                    clipping.
+                    last two dims of ≥2-D leaves), no momentum, update-norm
+                    clipping per leaf.
 
 A tree is a nested dict/list of tensors (the port's parameter tree, layers
 as a list).  ``update(params, state, grads, lr)`` updates the parameters and
@@ -18,6 +18,28 @@ corrections and Adafactor's decay are float32 tensors on the parameters'
 device (Python floats are float64), and Python constants take part as
 float32, as JAX's weakly typed constants do.
 
+Adafactor is not elementwise: it factors the second moment over a leaf's
+last two dims and clips the update by the RMS of the whole leaf, and the
+reference's leaves hold each stack of blocks stacked along a leading layer
+axis.  So ``adafactor(stacks=...)`` (from `runtime.steps`: `models.model.
+STACKS`) computes the reference's function of the stacked tree, and holds
+the reference's stacked state (``vr``/``vc``/``v`` shaped as over the
+stacked leaf, so that `init` and `state_specs` agree and a checkpoint has
+the reference's layout).  For a stack of L per-layer tensors of shape s:
+
+  * rank(s) ≥ 2: row l of ``vr``/``vc`` is layer l's statistics, and the
+    clip's RMS is one value over all L layers' updates.  Two passes over
+    the layers: the first folds g² into the state and sums the squares of
+    the preconditioned update, the second recomputes the update (the same
+    float32 operations on the same values) and applies it.  One layer's
+    float32 temporaries are live at a time, never a second copy of the
+    stack; the cost is the preconditioner computed twice;
+  * rank(s) ≤ 1 (norm scales, biases, the SSM's A_log, D, dt_bias): the
+    stacked (L, d) leaf is factored over layers and channels (``vr`` is
+    (L,), ``vc`` is (d,)), so every layer's update depends on every
+    layer's gradient: these small leaves are stacked whole, updated as the
+    reference's leaf, and copied back row by row.
+
 ``state_specs`` mirrors the `TensorSpec` tree of the parameters, as the
 reference's does, so the state can be sized without allocating it.
 """
@@ -25,7 +47,7 @@ reference's does, so the state can be sized without allocating it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Iterator, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Iterator, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -153,21 +175,105 @@ def _factored_dims(shape: Tuple[int, ...]) -> Optional[Tuple[int, int]]:
     return len(shape) - 2, len(shape) - 1
 
 
-def adafactor(*, decay: float = 0.8, eps: float = 1e-30, clip_threshold: float = 1.0,
-              weight_decay: float = 0.0) -> Optimizer:
+def _precond(g: torch.Tensor, st: dict, beta2t: torch.Tensor, eps: float,
+             update: bool) -> torch.Tensor:
+    """The preconditioned update of one tensor ``g`` (float32) from its
+    state ``st`` (``v``, or ``vr``/``vc`` over the last two dims), after
+    folding g² into the state in place when ``update``."""
+    if "v" in st:
+        v = st["v"]
+        if update:
+            v.copy_(beta2t * v + (1 - beta2t) * (torch.square(g) + eps))
+        return g * torch.rsqrt(v + eps)
+    r, c = g.dim() - 2, g.dim() - 1
+    vr, vc = st["vr"], st["vc"]
+    if update:
+        g2 = torch.square(g) + eps
+        vr.copy_(beta2t * vr + (1 - beta2t) * torch.mean(g2, dim=c))
+        vc.copy_(beta2t * vc + (1 - beta2t) * torch.mean(g2, dim=r))
+        del g2
+    row_mean = torch.mean(vr, dim=-1, keepdim=True)
+    rfac = torch.rsqrt((vr / torch.clamp_min(row_mean, eps)).unsqueeze(c))
+    return g * rfac * torch.rsqrt(vc.unsqueeze(r))
+
+
+def _units(params: Any, grads: Any, inner: Any, stacks: Sequence[Tuple[str, ...]],
+           path: Tuple[str, ...] = ()) -> Iterator[Tuple[list, list, dict, bool]]:
+    """Adafactor's units, in `flatten`'s order of the parameters: (the
+    per-layer tensors of one reference leaf, their gradients, its stacked
+    state, True) for each leaf of a stack, (tensor, gradient, state, False)
+    for every other leaf."""
+    if path in stacks:
+        layers_p = [flatten(p) for p in params]
+        layers_g = [flatten(g) for g in grads]
+        for i, (_, st) in enumerate(_with_state(params[0], inner)):
+            yield [p[i] for p in layers_p], [g[i] for g in layers_g], st, True
+    elif isinstance(params, dict):
+        for k, v in params.items():
+            yield from _units(v, grads[k], inner[k], stacks, path + (k,))
+    elif isinstance(params, (list, tuple)):
+        for v, g, s in zip(params, grads, inner):
+            yield from _units(v, g, s, stacks, path + (None,))
+    else:
+        yield [params], [grads], inner, False
+
+
+def adafactor(*, stacks: Sequence[Tuple[str, ...]], decay: float = 0.8, eps: float = 1e-30,
+              clip_threshold: float = 1.0, weight_decay: float = 0.0) -> Optimizer:
+    """Adafactor over the reference's tree: each path in ``stacks`` names a
+    list of per-layer dicts that the reference holds as one leaf per
+    parameter, stacked along a leading layer axis, and is factored and
+    clipped as that leaf (see the module docstring).  ``stacks`` is ``()``
+    only for a tree with no per-layer lists."""
+    stacks = tuple(tuple(s) for s in stacks)
+
+    def zero_state(shape, device):
+        dims = _factored_dims(shape)
+        if dims is None:
+            return {"v": torch.zeros(shape, dtype=_F32, device=device)}
+        r, c = dims
+        row_shape = tuple(d for i, d in enumerate(shape) if i != c)
+        col_shape = tuple(d for i, d in enumerate(shape) if i != r)
+        return {"vr": torch.zeros(row_shape, dtype=_F32, device=device),
+                "vc": torch.zeros(col_shape, dtype=_F32, device=device)}
+
     def init(params: Any) -> OptState:
-        def zero_state(p):
-            dims = _factored_dims(tuple(p.shape))
-            if dims is None:
-                return {"v": torch.zeros(p.shape, dtype=_F32, device=p.device)}
-            r, c = dims
-            row_shape = tuple(d for i, d in enumerate(p.shape) if i != c)
-            col_shape = tuple(d for i, d in enumerate(p.shape) if i != r)
-            return {"vr": torch.zeros(row_shape, dtype=_F32, device=p.device),
-                    "vc": torch.zeros(col_shape, dtype=_F32, device=p.device)}
+        def walk(tree, path):
+            if path in stacks:
+                n = len(tree)
+                return tree_map(lambda p: zero_state((n,) + tuple(p.shape), p.device), tree[0])
+            if isinstance(tree, dict):
+                return {k: walk(v, path + (k,)) for k, v in tree.items()}
+            if isinstance(tree, (list, tuple)):
+                return type(tree)(walk(v, path + (None,)) for v in tree)
+            return zero_state(tuple(tree.shape), tree.device)
 
         return OptState(step=torch.zeros((), dtype=torch.int32, device=_device(params)),
-                        inner=tree_map(zero_state, params))
+                        inner=walk(params, ()))
+
+    def apply(slices, n: int, beta2t: torch.Tensor, lr: torch.Tensor) -> None:
+        """Update the tensors of ``slices`` ((param, grad, state) that make
+        up one reference leaf of ``n`` values) under one RMS clip: a first
+        pass folds each g² into the state and sums the squares of the
+        preconditioned update, a second recomputes the update and applies
+        it (one slice keeps its update between the passes)."""
+        keep = len(slices) == 1
+        total, pre = 0, None
+        for p, g, st in slices:
+            pre = _precond(g.to(_F32), st, beta2t, eps, update=True)
+            total = total + torch.sum(torch.square(pre))
+            if not keep:
+                pre = None
+        # Update-norm clipping (RMS ≤ clip_threshold), over the whole leaf.
+        rms = torch.sqrt(total / n + 1e-30)
+        scale = torch.clamp_min(rms / clip_threshold, 1.0)
+        for p, g, st in slices:
+            if pre is None:
+                pre = _precond(g.to(_F32), st, beta2t, eps, update=False)
+            pre = pre / scale
+            pf = p.to(_F32)
+            p.copy_(pf - lr * (pre + weight_decay * pf))
+            pre = None
 
     @torch.no_grad()
     def update(params: Any, state: OptState, grads: Any, lr: torch.Tensor):
@@ -175,29 +281,18 @@ def adafactor(*, decay: float = 0.8, eps: float = 1e-30, clip_threshold: float =
         # Step-dependent decay (Adafactor's \hat{beta2_t}).
         beta2t = 1.0 - torch.pow(step.to(_F32), torch.tensor(-decay, dtype=_F32,
                                                                device=step.device))
-        for (p, st), g in zip(_with_state(params, state.inner), flatten(grads)):
-            g = g.to(_F32)
-            g2 = torch.square(g) + eps
-            dims = _factored_dims(tuple(p.shape))
-            if dims is None:
-                v = st["v"]
-                v.copy_(beta2t * v + (1 - beta2t) * g2)
-                precond = g * torch.rsqrt(v + eps)
-            else:
-                r, c = dims
-                vr, vc = st["vr"], st["vc"]
-                vr.copy_(beta2t * vr + (1 - beta2t) * torch.mean(g2, dim=c))
-                vc.copy_(beta2t * vc + (1 - beta2t) * torch.mean(g2, dim=r))
-                row_mean = torch.mean(vr, dim=-1, keepdim=True)
-                rfac = torch.rsqrt((vr / torch.clamp_min(row_mean, eps)).unsqueeze(c))
-                cfac = torch.rsqrt(vc.unsqueeze(r))
-                precond = g * rfac * cfac
-            del g2
-            # Update-norm clipping (RMS ≤ clip_threshold).
-            rms = torch.sqrt(torch.mean(torch.square(precond)) + 1e-30)
-            precond = precond / torch.clamp_min(rms / clip_threshold, 1.0)
-            pf = p.to(_F32)
-            p.copy_(pf - lr * (precond + weight_decay * pf))
+        for ps, gs, st, stacked in _units(params, grads, state.inner, stacks):
+            n = sum(p.numel() for p in ps)
+            if not stacked:
+                apply([(ps[0], gs[0], st)], n, beta2t, lr)
+            elif ps[0].dim() >= 2:  # factored within each layer: one slice a layer
+                apply([(p, g, {k: v[l] for k, v in st.items()})
+                       for l, (p, g) in enumerate(zip(ps, gs))], n, beta2t, lr)
+            else:  # an (L,) or (L, d) leaf, factored over the layers: stacked whole
+                whole = torch.stack(ps)
+                apply([(whole, torch.stack([g.to(_F32) for g in gs]), st)], n, beta2t, lr)
+                for l, p in enumerate(ps):
+                    p.copy_(whole[l])
         return params, OptState(step=step, inner=state.inner)
 
     def state_specs(param_specs: Any) -> Any:
@@ -219,9 +314,14 @@ def adafactor(*, decay: float = 0.8, eps: float = 1e-30, clip_threshold: float =
     return Optimizer(init=init, update=update, state_specs=state_specs)
 
 
-def make_optimizer(name: str, *, weight_decay: float = 0.01) -> Optimizer:
+def make_optimizer(name: str, *, stacks: Sequence[Tuple[str, ...]],
+                   weight_decay: float = 0.01) -> Optimizer:
+    """The optimizer ``name``; ``stacks`` names the tree's per-layer stacks
+    (`models.model.STACKS`, or ``()`` for a tree with none), which Adafactor
+    factors and clips as the reference's stacked leaves (AdamW is
+    elementwise: stacking changes nothing for it)."""
     if name == "adamw":
         return adamw(weight_decay=weight_decay)
     if name == "adafactor":
-        return adafactor(weight_decay=weight_decay)
+        return adafactor(weight_decay=weight_decay, stacks=stacks)
     raise ValueError(f"unknown optimizer {name!r}")

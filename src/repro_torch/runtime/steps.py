@@ -29,7 +29,7 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ExecConfig
-from repro_torch.models.model import Model
+from repro_torch.models.model import STACKS, Model
 from repro_torch.models.spec import TensorSpec, flatten, unflatten
 from repro_torch.optim import OptState, clip_by_global_norm, linear_warmup_cosine, make_optimizer
 from repro_torch.parallel.microbatch import accumulate_gradients
@@ -38,6 +38,11 @@ __all__ = ["TrainState", "init_train_state", "make_grad_fn", "make_serve_steps",
            "make_train_step", "train_state_specs"]
 
 TrainState = Dict[str, Any]  # {"params": tree, "opt": OptState}
+
+
+def _optimizer(exec_cfg: ExecConfig):
+    """The config's optimizer over the model's tree, its stacks named."""
+    return make_optimizer(exec_cfg.optimizer, weight_decay=exec_cfg.weight_decay, stacks=STACKS)
 
 
 def make_grad_fn(model: Model, exec_cfg: ExecConfig) -> Callable[[Any, Dict[str, Any]],
@@ -77,7 +82,7 @@ def make_grad_fn(model: Model, exec_cfg: ExecConfig) -> Callable[[Any, Dict[str,
 def make_train_step(model: Model, exec_cfg: ExecConfig
                     ) -> Callable[[TrainState, Dict[str, Any]], Tuple[TrainState, Dict]]:
     """The training step for (model, exec config)."""
-    optimizer = make_optimizer(exec_cfg.optimizer, weight_decay=exec_cfg.weight_decay)
+    optimizer = _optimizer(exec_cfg)
     grad_fn = make_grad_fn(model, exec_cfg)
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
@@ -95,8 +100,10 @@ def make_train_step(model: Model, exec_cfg: ExecConfig
 def init_train_state(model: Model, exec_cfg: ExecConfig) -> TrainState:
     """The model's parameters (set to require gradients) and a fresh optimizer
     state.  The reference draws the parameters here from a key; the port's
-    `Model` has drawn them already, from its ``seed``."""
-    optimizer = make_optimizer(exec_cfg.optimizer, weight_decay=exec_cfg.weight_decay)
+    `Model` has drawn them already, from its ``seed``.  AdamW's moments
+    follow the port's tree (a list per stack); Adafactor's state is the
+    reference's, stacked over layers, as `train_state_specs` gives it."""
+    optimizer = _optimizer(exec_cfg)
     params = model.params_tree()
     for p in flatten(params):
         p.requires_grad_(True)
@@ -105,8 +112,10 @@ def init_train_state(model: Model, exec_cfg: ExecConfig) -> TrainState:
 
 def train_state_specs(model: Model, exec_cfg: ExecConfig) -> Any:
     """TensorSpec tree matching the reference's ``init_train_state`` (the
-    parameters stacked over layers, as `Model.param_specs` gives them)."""
-    optimizer = make_optimizer(exec_cfg.optimizer, weight_decay=exec_cfg.weight_decay)
+    parameters stacked over layers, as `Model.param_specs` gives them).
+    Adafactor's state is allocated in this layout; the parameters and
+    AdamW's moments are its per-layer slices."""
+    optimizer = _optimizer(exec_cfg)
     pspecs = model.param_specs()
     return {"params": pspecs,
             "opt": OptState(step=TensorSpec((), torch.int32, ()),

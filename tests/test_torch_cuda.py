@@ -836,3 +836,77 @@ def test_family_smoke_model_on_the_card_matches_the_cpu(dev, arch):
         assert (fa.launches - before[0], ssd.launches - before[1]) == (want_fa, 2 * want_ssd)
     assert_close(want.numpy(), got.cpu().numpy(), rtol=1e-4, atol=1e-4, what="prefill")
     assert_close(want_step.numpy(), got_step.cpu().numpy(), rtol=1e-4, atol=1e-4, what="decode")
+
+
+# ---------------------------------------------------------------- training the other families
+
+
+TRAIN_FA_SHAPES = [  # (b, t, h, kv, d): K2 at each new training path's microbatch
+    (2, 4096, 32, 32, 64),  # zamba2's shared block, 4 x 4096 in 2 microbatches
+    (1, 4096, 64, 8, 112),  # kimi-k2, 4 x 4096 in 4
+    (2, 3584, 32, 8, 128),  # llava: 2880 patches + 704 text tokens, batch 2
+    (8, 512, 6, 6, 64),  # whisper's decoder self-attention, batch 8
+]
+
+
+@pytest.mark.parametrize("b,t,h,kv,d", TRAIN_FA_SHAPES)
+def test_flash_kernel_at_the_training_shapes(dev, b, t, h, kv, d):
+    q, k, v = qkv(dev, b * t + h + d, b, t, h, kv, d, torch.bfloat16)
+    before = fa_counts()
+    out = flash_attention(q, k, v, True)
+    torch.cuda.synchronize()
+    assert fa_counts() == fa_launched(before, "tensor_core")
+    plain = flash_attention_plain(q, k, v)
+    assert out.shape == q.shape and bool(torch.isfinite(out).all())
+    assert_close(plain.float().cpu().numpy(), out.float().cpu().numpy(),
+                 **FA_TOL[torch.bfloat16], what="kernel vs plain")
+
+
+def test_ssd_kernel_at_the_hybrid_training_shape(dev):
+    """zamba2's microbatch of 2 x 4096 tokens: 16 chunks of 256, 64 heads of
+    64, one group of B and C, bfloat16 values."""
+    b, nc, q, h, p, n = 2, 16, 256, 64, 64, 64
+    x, dt, lA, B_, C_ = ssd_inputs(dev, 21, b, nc, q, h, p, n)
+    x, Bg, Cg = (a.to(torch.bfloat16).float() for a in (x, B_[:, :, :, :1], C_[:, :, :, :1]))
+    before = ssd_kernel.ssd_diag_cuda.launches
+    out = ssd_diag_chunk(x, dt, lA, Bg, Cg)
+    torch.cuda.synchronize()
+    assert ssd_kernel.ssd_diag_cuda.launches == before + 1
+    plain = ssd_diag_plain(x, dt, lA, Bg, Cg)
+    assert_close(plain.cpu().numpy(), out.cpu().numpy(), **SSD_TOL, what="kernel vs plain")
+
+
+def test_adafactor_stacked_on_the_card_matches_the_cpu(dev):
+    """Adafactor over a stacked MoE-shaped tree (experts, a projection, a
+    norm scale per layer, and an embedding outside the stack), three steps
+    on the card against the same steps on the CPU: the same float32
+    operations, summed in other orders."""
+    from repro_torch.optim import make_optimizer
+    from repro_torch.models.spec import leaves, tree_map
+
+    rng = np.random.default_rng(5)
+    layer = {"experts": (8, 64, 32), "wq": (64, 4, 16), "scale": (64,)}
+
+    def tree(step):
+        return {"embed": rng.standard_normal((128, 64)).astype(np.float32),
+                "layers": [{k: (rng.standard_normal(s) * (1 + step) ** (l - 1.5)).astype(np.float32)
+                            for k, s in layer.items()} for l in range(4)]}
+
+    init = tree(0)
+    opt = make_optimizer("adafactor", weight_decay=0.01, stacks=[("layers",)])
+    sides = {}
+    for where in (dev, "cpu"):
+        p = tree_map(lambda a: torch.from_numpy(a).to(where), init)
+        sides[str(where)] = [p, opt.init(p)]
+    for step in range(3):
+        g = tree(step + 1)
+        lr = torch.tensor(1e-2, dtype=torch.float32)
+        for where, side in sides.items():
+            side[0], side[1] = opt.update(side[0], side[1],
+                                          tree_map(lambda a: torch.from_numpy(a).to(where), g),
+                                          lr.to(where))
+    (p_dev, s_dev), (p_cpu, s_cpu) = sides[str(dev)], sides["cpu"]
+    for part_dev, part_cpu in ((p_dev, p_cpu), (s_dev.inner, s_cpu.inner)):
+        for (name, a), (_, b) in zip(leaves(part_dev), leaves(part_cpu)):
+            assert_close(b.numpy(), a.cpu().numpy(), rtol=1e-4, atol=1e-5, what=name)
+    assert tuple(s_dev.inner["layers"]["scale"]["vr"].shape) == (4,)

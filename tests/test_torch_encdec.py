@@ -5,8 +5,8 @@ GELU, biased projections, sinusoidal positions); cross-attention through
 `attn_apply(kv_source=...)`; the smoke model's forward, loss, prefill (the
 encoder run once, its K/V projected into the ``xk`` / ``xv`` caches) and
 three decode steps, in float32 and bfloat16, the caches included; decode
-against the teacher-forced forward; the serving loop's tokens; and that
-training raises.  The decoder's learned position table is whisper's own.
+against the teacher-forced forward; the serving loop's tokens; and
+training from the command line, with a resume.  The decoder's learned position table is whisper's own.
 Helpers and tolerances: `tests/torch_zoo.py`; the model end to end in
 float32 is held to `MODEL_F32_TOL`.
 
@@ -34,14 +34,14 @@ from repro.models import layers as RL
 from repro.models import transformer as RT
 from repro.runtime.decode_loop import ServeLoop as RefServeLoop
 from repro.runtime.steps import make_serve_steps as ref_serve_steps
-from repro_torch.launch import serve, train
+from repro_torch.launch import serve
 from repro_torch.models import layers as PL
 from repro_torch.models import transformer as PT
 from repro_torch.models.convert import params_from_jax
 from repro_torch.testing import BF16_RTOL, FLOAT_ATOL, assert_close, compare_token_traces
 from torch_zoo import (MODEL_F32_TOL, TOL, hold_decode_against_forward, hold_forward,
                        hold_prefill_and_decode, jax_batch, make_inputs, normal, np_f32, np_values,
-                       pair, port_config, reference_mode, zero_cache)
+                       pair, port_config, reference_mode, zero_cache, train_cli_and_resume)
 
 ARCH = "whisper-tiny"
 ENCDEC_TOL = {"float32": MODEL_F32_TOL, "bfloat16": dict(rtol=BF16_RTOL, atol=2.0**-3)}
@@ -139,7 +139,5 @@ def test_serve_loop_tokens_equal_reference_up_to_ties(cd):
     assert cmp.matched + len(cmp.ties) == 2
 
 
-def test_training_raises_naming_its_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        train.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "1",
-                    "--ckpt-dir", str(tmp_path / "ck")])
+def test_train_cli_trains_and_resumes(tmp_path):
+    train_cli_and_resume(ARCH, tmp_path)

@@ -6,8 +6,9 @@ forward, loss, prefill and three decode steps of both, in float32 and
 bfloat16, every cache buffer (the per-layer SSM states, the per-site KV
 caches) held to the reference's; that the shared block runs at the sites
 alone and writes only its own site's cache; decode against the
-teacher-forced forward; the serving loop's tokens; and one zamba2 layer at
-full width (the shared attention+MLP block and one Mamba-2 layer).
+teacher-forced forward; the serving loop's tokens; training from the
+command line with a resume; and one zamba2 layer at full width (the shared
+attention+MLP block and one Mamba-2 layer).
 
 The port's SSM layers send every chunked SSD call to the SSD op
 (``use_kernel=True``: its plain version on the CPU); the reference's
@@ -39,12 +40,12 @@ from repro.models import hybrid as RH
 from repro.runtime.decode_loop import ServeLoop as RefServeLoop
 from repro.runtime.steps import make_serve_steps as ref_serve_steps
 from repro_torch.kernels.ssd import kernel as ssd_kernel
-from repro_torch.launch import serve, train
+from repro_torch.launch import serve
 from repro_torch.models import hybrid as PH
 from repro_torch.testing import FLOAT_ATOL, FLOAT_RTOL, assert_close, compare_token_traces
-from torch_zoo import (TOL, hold_decode_against_forward, hold_forward,
-                       hold_prefill_and_decode, make_inputs, pair, port_config, reference_mode,
-                       zero_cache)
+from torch_zoo import (TOL, hold_decode_against_forward, hold_forward, hold_prefill_and_decode,
+                       make_inputs, pair, port_config, reference_mode, zero_cache,
+                       train_cli_and_resume)
 
 ARCH = "zamba2-1.2b"
 VARIANTS = {"smoke": {}, "three sites": {"num_layers": 5}}
@@ -139,10 +140,8 @@ def test_serve_loop_tokens_equal_reference_up_to_ties(cd):
     assert cmp.matched + len(cmp.ties) == 2
 
 
-def test_training_raises_naming_its_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        train.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "1",
-                    "--ckpt-dir", str(tmp_path / "ck")])
+def test_train_cli_trains_and_resumes(tmp_path):
+    train_cli_and_resume(ARCH, tmp_path)
 
 
 def test_one_full_width_zamba2_layer_matches_reference():

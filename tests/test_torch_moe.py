@@ -6,8 +6,9 @@ k-major, the aux loss), `moe_apply` with and without drops, chunked
 attention (`_chunked_sdpa`, arctic's ``attention_impl="chunked"``), the
 smoke models' forward, loss, prefill and three decode steps (the config's
 capacity, and a capacity factor of 0.5 so that tokens drop), the serving
-loop, `cast_weights_`, and one kimi-k2 layer at full width with its 384
-experts cut to 8 (top 8 of 8).
+loop, `cast_weights_`, training from the command line with a resume, and
+one kimi-k2 layer at full width with its 384 experts cut to 8 (top 8 of
+8).
 
 The reference's routing is read from its own run: its softmax, top-k and
 keep mask are recorded on their way through `jax.nn.softmax`,
@@ -33,13 +34,13 @@ import repro.configs as ref_configs
 from repro.models import layers as RL
 from repro.runtime.decode_loop import ServeLoop as RefServeLoop
 from repro.runtime.steps import make_serve_steps as ref_serve_steps
-from repro_torch.launch import serve, train
+from repro_torch.launch import serve
 from repro_torch.models import layers as PL
 from repro_torch.models.convert import _tensor
 from repro_torch.testing import assert_close, compare_token_traces
-from torch_zoo import (TOL, hold_decode_against_forward, hold_forward,
-                       hold_prefill_and_decode, make_inputs, normal, np_f32, np_values, pair,
-                       port_config, reference_mode, zero_cache)
+from torch_zoo import (TOL, hold_decode_against_forward, hold_forward, hold_prefill_and_decode,
+                       make_inputs, normal, np_f32, np_values, pair, port_config, reference_mode,
+                       zero_cache, train_cli_and_resume)
 
 MOE_ARCHS = ["kimi-k2-1t-a32b", "arctic-480b"]
 # Two router probabilities closer than this are a tie float32 cannot
@@ -278,11 +279,10 @@ def test_cast_weights_keeps_the_router_in_float32():
 
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)
-def test_training_raises_naming_its_roadmap_item(arch, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        train.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "1",
-                    "--ckpt-dir", str(tmp_path / "ck")])
-    assert not (tmp_path / "ck").exists()
+def test_train_cli_trains_and_resumes(arch, tmp_path):
+    """The MoE configs train from the command line (Adafactor over the
+    stacked tree, bfloat16 accumulation) and resume from a checkpoint."""
+    train_cli_and_resume(arch, tmp_path)
 
 
 def test_one_full_width_kimi_k2_layer_matches_reference():

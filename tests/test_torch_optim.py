@@ -74,7 +74,7 @@ def assert_trees_close(ref, got, **tol):
 def test_optimizer_matches_reference_over_steps(name):
     rng = np.random.default_rng(0)
     params = np_tree(rng)
-    ref_opt, opt = ref_make_optimizer(name), make_optimizer(name)
+    ref_opt, opt = ref_make_optimizer(name), make_optimizer(name, stacks=())
     ref_p, ref_state = to_jax(params), ref_opt.init(to_jax(params))
     p = to_port(params)
     state = opt.init(p)
@@ -96,7 +96,7 @@ def test_state_specs_match_reference(name):
     ref_specs = RefModel(ref_configs.smoke("qwen3-8b").model).param_specs()
     port_specs = Model(port_configs.smoke("qwen3-8b").model, device="cpu").param_specs()
     ref_state = ref_make_optimizer(name).state_specs(ref_specs)
-    port_state = make_optimizer(name).state_specs(port_specs)
+    port_state = make_optimizer(name, stacks=()).state_specs(port_specs)
     ref_flat, _ = jax.tree_util.tree_flatten_with_path(
         ref_state, is_leaf=lambda x: hasattr(x, "axes"))
     ref_by_name = {".".join(str(k.key) for k in path): s for path, s in ref_flat}
@@ -109,16 +109,86 @@ def test_state_specs_match_reference(name):
     # and the state the port allocates from its own (per-layer) tree has the
     # shapes its specs give
     model = Model(port_configs.smoke("qwen3-8b").model, device="cpu")
-    inner = make_optimizer(name).init(model.params_tree()).inner
-    specs = dict(leaves(make_optimizer(name).state_specs(_unstacked_specs(model.cfg))))
+    inner = make_optimizer(name, stacks=()).init(model.params_tree()).inner
+    specs = dict(leaves(make_optimizer(name, stacks=()).state_specs(_unstacked_specs(model.cfg))))
     allocated = dict(leaves(inner))
     assert set(allocated) == set(specs)
     for key, t in allocated.items():
         assert tuple(t.shape) == specs[key].shape and t.dtype == specs[key].dtype, key
 
 
+# A model-like tree for Adafactor over stacks: one leaf outside the stack,
+# and per-layer leaves of rank 0, 1, 2 and an expert-shaped 3.
+STACK_LAYERS = 3
+STACK_LAYER = {"g": (), "scale": (6,), "w": (5, 7), "experts": (4, 5, 3)}
+
+
+def stacked_case(rng, step):
+    """(reference tree, port tree) of gradients at ``step``: each layer's at
+    its own scale, growing over the steps in even layers and shrinking in
+    odd ones, so that the preconditioned update's RMS moves above 1 in some
+    layers and below it in others, and the clip over the stack differs from
+    one per layer."""
+    embed = normal_np(rng, (9, 6))
+    layers = [{k: normal_np(rng, s) * np.float32((1 + step) ** (1.5 if l % 2 == 0 else -1.5))
+               for k, s in STACK_LAYER.items()} for l in range(STACK_LAYERS)]
+    ref = {"embed": embed, "layers": jax.tree.map(lambda *xs: np.stack(xs), *layers)}
+    return ref, {"embed": embed, "layers": layers}
+
+
+def normal_np(rng, shape):
+    return np.asarray(rng.standard_normal(shape), np.float32)
+
+
+def test_adafactor_matches_reference_over_stacked_trees():
+    """The port's Adafactor on per-layer lists named as stacks computes the
+    reference's Adafactor on the stacked leaves: the stacked state (a
+    per-layer 1-D leaf factored over the layers, (L,) and (d,)), the update
+    clipped by one RMS over the stack, over five steps.  Float32 tolerance:
+    the same operations, the stack's sums of squares in another order."""
+    rng = np.random.default_rng(3)
+    ref_params, params = stacked_case(rng, 0)
+    ref_opt = ref_make_optimizer("adafactor", weight_decay=0.01)
+    opt = make_optimizer("adafactor", weight_decay=0.01, stacks=[("layers",)])
+    ref_p, ref_state = to_jax(ref_params), ref_opt.init(to_jax(ref_params))
+    p = to_port(params)
+    state = opt.init(p)
+    assert {k: tuple(t.shape) for k, t in leaves(state.inner)} == {
+        k: tuple(np.shape(t)) for k, t in ((".".join(str(x.key) for x in path), t) for path, t
+                                          in jax.tree_util.tree_flatten_with_path(
+                                              ref_state.inner)[0])}
+    assert tuple(state.inner["layers"]["scale"]["vr"].shape) == (STACK_LAYERS,)
+    clipped = set()
+    for step in range(5):
+        ref_grads, grads = stacked_case(rng, step)
+        lr = np.float32(1e-2 / (step + 1))
+        ref_p, ref_state = ref_opt.update(ref_p, ref_state, to_jax(ref_grads), jnp.asarray(lr))
+        tensors = [t for _, t in leaves(p)]
+        p, state = opt.update(p, state, to_port(grads), torch.tensor(lr))
+        assert all(a is b for a, b in zip(tensors, (t for _, t in leaves(p))))  # in place
+        assert int(state.step) == step + 1
+        stacked_p = {"embed": p["embed"],
+                     "layers": jax.tree.map(lambda *xs: torch.stack(xs), *p["layers"])}
+        assert_trees_close(ref_p, stacked_p)
+        assert_trees_close(ref_state.inner, state.inner)
+        # which layers' own update RMS exceeds 1 (the clip a layer alone would take)
+        pre = ref_layer_rms(ref_state.inner["layers"]["w"], ref_grads["layers"]["w"])
+        clipped |= {bool(r > 1) for r in pre}
+    assert clipped == {True, False}  # the stacked clip bit on some layers and not others
+
+
+def ref_layer_rms(st, g):
+    """Per layer, the RMS of the reference's preconditioned update of a 2-D
+    per-layer leaf, from its updated state."""
+    vr, vc = np.asarray(st["vr"]), np.asarray(st["vc"])
+    rfac = 1 / np.sqrt(vr / np.maximum(vr.mean(-1, keepdims=True), 1e-30))
+    pre = g * rfac[..., None] / np.sqrt(vc[..., None, :])
+    return np.sqrt(np.square(pre).mean(axis=(1, 2)))
+
+
 def test_adafactor_state_is_factored():
-    state = make_optimizer("adafactor").init({"w": torch.zeros(128, 64), "s": torch.zeros(7)})
+    state = make_optimizer("adafactor", stacks=()).init(
+        {"w": torch.zeros(128, 64), "s": torch.zeros(7)})
     assert [tuple(t.shape) for _, t in leaves(state.inner)] == [(7,), (64,), (128,)]  # s.v, w.vc, w.vr
 
 
@@ -149,7 +219,7 @@ def test_schedules_match_reference():
 
 
 def test_opt_state_is_the_reference_shape():
-    state = make_optimizer("adamw").init({"w": torch.zeros(3)})
+    state = make_optimizer("adamw", stacks=()).init({"w": torch.zeros(3)})
     assert isinstance(state, OptState) and state._fields == ("step", "inner")
     assert set(state.inner) == {"mu", "nu"}
 

@@ -7,7 +7,8 @@ three decode steps from position P + T, in float32 and bfloat16, the cache
 included; decode against the teacher-forced forward; the serving loop,
 which decodes from P + T (its tokens equal the teacher-forced argmax, and
 the reference's); the serve CLI, which adds the config's patches to the
-prompt, as the reference's does; and that training raises.  Helpers and
+prompt, as the reference's does; and training from the command line,
+with a resume.  Helpers and
 tolerances: `tests/torch_zoo.py`.
 """
 
@@ -21,10 +22,11 @@ import jax.numpy as jnp
 import repro.configs as ref_configs
 from repro.runtime.decode_loop import ServeLoop as RefServeLoop
 from repro.runtime.steps import make_serve_steps as ref_serve_steps
-from repro_torch.launch import serve, train
+from repro_torch.launch import serve
 from repro_torch.testing import FLOAT_ATOL, compare_token_traces
 from torch_zoo import (TOL, hold_decode_against_forward, hold_forward, hold_prefill_and_decode,
-                       jax_batch, make_inputs, pair, reference_mode, zero_cache)
+                       jax_batch, make_inputs, pair, reference_mode, zero_cache,
+                       train_cli_and_resume)
 
 ARCH = "llava-next-mistral-7b"
 VARIANTS = {"smoke": {}, "learned positions": {"pos_emb": "learned", "max_position": 64}}
@@ -107,7 +109,5 @@ def test_serve_cli_adds_the_patches_to_the_prompt(monkeypatch, capsys):
     assert "[tokens]" in capsys.readouterr().out
 
 
-def test_training_raises_naming_its_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        train.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "1",
-                    "--ckpt-dir", str(tmp_path / "ck")])
+def test_train_cli_trains_and_resumes(tmp_path):
+    train_cli_and_resume(ARCH, tmp_path)

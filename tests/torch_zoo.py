@@ -16,6 +16,10 @@ BF16_RTOL / BF16_ATOL (under `jax.jit` XLA may skip bfloat16 roundings:
 
 import contextlib
 import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -206,3 +210,25 @@ def hold_decode_against_forward(model, batch, split, max_len):
             steps.append(step)
     assert_close(full[:, split - 1:t].numpy(), torch.cat(steps, 1)[:, :t - split + 1].numpy(),
                  **MODEL_F32_TOL, what="decode vs forward")
+
+
+def train_cli_and_resume(arch, tmp_path, seq_len=24):
+    """``python -m repro_torch.launch.train --arch <arch> --smoke --device
+    cpu``: 2 steps in 2 microbatches with a checkpoint at step 2, then
+    `train.main` resumes from it for 2 more."""
+    from repro_torch.launch import train
+
+    ck = tmp_path / "ck"
+    args = ["--arch", arch, "--smoke", "--device", "cpu", "--global-batch", "4",
+            "--seq-len", str(seq_len), "--microbatches", "2", "--ckpt-dir", str(ck),
+            "--ckpt-every", "2"]
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1] / "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *args, "--steps", "2",
+                          "--log-every", "1"], capture_output=True, text=True, env=env,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "[train] step 2 loss" in out.stdout
+    assert "device=cpu exit=completed final_step=2" in out.stdout
+    assert sorted(os.listdir(ck)) == ["step_00000002"]
+    result = train.main(args + ["--steps", "2"])
+    assert result["final_step"] == 4 and result["exit"] == "completed"  # resumed at 2
