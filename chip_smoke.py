@@ -38,9 +38,10 @@ Phases, each reported on its own lines:
      CUDA-core kernel's path; then the tensor-core kernel at the shape of
      each forward of phases 16-20 (kimi-k2's D = 112, granite-34b's one KV
      head, qwen1.5-32b's 40/40, zamba2's T = 32768, whisper's decoder,
-     llava's 3584 positions) and of each microbatch of phases 21-24
-     (zamba2's 2 x 4096, whisper's 8 x 512, llava's 2 x 3584), held and
-     timed the same way;
+     llava's 3584 positions), of each microbatch of phases 21-24
+     (zamba2's 2 x 4096, whisper's 8 x 512, llava's 2 x 3584) and of
+     phase 25 (b)'s kimi-k2 layer (1 x 1024, bfloat16 and float32), held
+     and timed the same way;
   6. the Qwen3-8B teacher-forced forward at full width and depth (36
      layers, float32 parameters drawn on the card from a seed, bfloat16
      compute, B=1, T=4096), held against the same parameters run through
@@ -151,7 +152,23 @@ Phases, each reported on its own lines:
      its dense attention route), the MoE's picks pinned to the kernel
      route's, within the stated limits; where the model is chaotic at the
      phase's depth (zamba2, whisper, llava), printed beside its noise floor
-     and held instead at a few layers (`TRAIN_HELD_LAYERS`).
+     and held instead at a few layers (`TRAIN_HELD_LAYERS`);
+ 25. the parallel layer (`repro_torch.parallel`, `launch.mesh`,
+     `launch.build.rules_for`): (a) one process, world size 1 (a gloo
+     group of one), kimi-k2's 1-layer forward at full width (384 experts,
+     bfloat16, B=1, T=4096) under `activation_sharding` on a (1, 1)
+     ("data", "model") mesh, through `moe_apply_shard_map`, bit-equal to
+     the forward without a context; (b) two processes on the one card over
+     gloo (whose all-reduce and all-gather take CUDA tensors), a (1, 2)
+     mesh, kimi-k2's layer at every width with 32 of 384 experts, float32
+     and bfloat16, 1 x 1024 tokens: logits, aux and the router's, `wi_gate`'s
+     and `wo`'s gradients (remat "full", so the backward recomputes the
+     expert-parallel forward) held against the same rank's local route,
+     each rank joined with a timeout; (c) `pipeline_apply` at S = 1 over 8
+     of Qwen3-8B's 36 decoder layers (stacked), M = 2 microbatches of (1,
+     4096), bit-equal to the plain stack on each.  S = 2 does not run on
+     the card: the hand-offs are point-to-point, and gloo sends and
+     receives CPU tensors only.
 
 Phases 2-4, 14 and 15 are the paths that run the EI/argmax kernel, phases 6 and
 12 the paths that run the tensor-core flash-attention kernel (the bfloat16
@@ -160,7 +177,9 @@ path of the CUDA-core one, phases 9, 10 and 13 the paths that run the SSD
 kernel, phase 11 the RMSNorm op, phases 16-20 the other families' paths
 of the tensor-core flash kernel (each forward but arctic's) and of the SSD
 kernel (zamba2's forward and prefill), phases 21-24 their training paths
-(K2 in each but arctic's, K3 in zamba2's).  Each sets the launch counts to 0 just
+(K2 in each but arctic's, K3 in zamba2's), phase 25 the parallel layer's
+(K2 in each part: the tensor-core kernel, but (b)'s float32 run, which
+takes the CUDA-core one).  Each sets the launch counts to 0 just
 before its run, reads them just after, and fails unless its kernel ran
 exactly once per fused BO step (phases 2-4), once per lockstep chunk step
 of a fused fleet (phase 14: one launch for all the chunk's rows; phase 15:
@@ -173,9 +192,11 @@ once per layer of the prefill and never in a decode step (phases 10 and
 or
 twice per layer (or hybrid site) and microbatch of a training step, in
 the forward and in the remat recompute (phases 12, 13, 21, 23 and 24;
-once under whisper's remat "none", phase 22).  Qwen3 serving runs no kernel,
-as in the reference (prefill and decode attend through the cache); phase 7
-checks that too.
+once under whisper's remat "none", phase 22), once in (a)'s forward, three
+times a rank and dtype in (b) (the forward, the loss's forward and its
+recompute), and once per layer and microbatch in (c) (phase 25).  Qwen3
+serving runs no kernel, as in the reference (prefill and decode attend
+through the cache); phase 7 checks that too.
 
 A failed check fails the run: the script exits non-zero and prints no
 result.  It needs a CUDA card and the rest of the checkout; without either
@@ -1734,6 +1755,12 @@ TRAIN_FA_SHAPES = {
     "vlm_train": (2, 3584, 32, 8, 128),  # llava: 2880 patches + 704 text tokens, batch 2
     "kimi_train": (1, 4096, 64, 8, 112),  # kimi-k2: 4 x 4096 in 4, the forward's shape
 }
+# K2's shapes on phase 25 (b)'s path, the expert-parallel kimi-k2 layer on
+# two ranks: (shape, dtype); float32 runs the CUDA-core kernel.
+PARALLEL_FA_SHAPES = {
+    "parallel_ep_2ranks_bfloat16": ((1, 1024, 64, 8, 112), "bfloat16"),
+    "parallel_ep_2ranks_float32": ((1, 1024, 64, 8, 112), "float32"),
+}
 # The plain version's tile loop is too long to capture in a CUDA graph
 # past this many (query tile, key tile) pairs: timed by events alone.
 PLAIN_GRAPH_MAX_PAIRS = 4096
@@ -1863,15 +1890,18 @@ def phase_flash(dev, report) -> dict:
                                  **bound)
             del q, k, v, out
         shapes, timed = {}, {}
-        for arch, (sb, st, sh, skv, sd) in {**FAMILY_FA_SHAPES, **TRAIN_FA_SHAPES}.items():
-            if (sb, st, sh, skv, sd) in timed:  # a shape timed already (on another path)
-                shapes[arch] = shapes[timed[sb, st, sh, skv, sd]]
-                print(f"  {arch}'s shape is {timed[sb, st, sh, skv, sd]}'s: timed there")
+        for arch, ((sb, st, sh, skv, sd), dt) in [
+                *((a, (sh_, "bfloat16")) for a, sh_ in {**FAMILY_FA_SHAPES,
+                                                        **TRAIN_FA_SHAPES}.items()),
+                *PARALLEL_FA_SHAPES.items()]:
+            if (sb, st, sh, skv, sd, dt) in timed:  # a shape timed already (on another path)
+                shapes[arch] = shapes[timed[sb, st, sh, skv, sd, dt]]
+                print(f"  {arch}'s shape is {timed[sb, st, sh, skv, sd, dt]}'s: timed there")
                 continue
-            timed[sb, st, sh, skv, sd] = arch
-            q, k, v = fa_inputs(dev, 300 + st + sh, sb, st, sh, skv, sd, "bfloat16")
+            timed[sb, st, sh, skv, sd, dt] = arch
+            q, k, v = fa_inputs(dev, 300 + st + sh, sb, st, sh, skv, sd, dt)
             shape = f"B={sb} T={st} H={sh} KV={skv} D={sd}"
-            name = f"{arch} forward shape {shape} causal bfloat16"
+            name = f"{arch} forward shape {shape} causal {dt}"
             out = check(name, q, k, v, True)
             err_lib = assert_close(sdpa(q, k, v).float().cpu().numpy(), out.float().cpu().numpy(),
                                    **SDPA_TOL, what=f"{name} vs SDPA")
@@ -1884,14 +1914,14 @@ def phase_flash(dev, report) -> dict:
             p_dev = (None if pairs > PLAIN_GRAPH_MAX_PAIRS
                      else graph_ms(lambda: flash_attention_plain(q, k, v), calls=1, reps=3))
             l_dev = graph_ms(lambda: sdpa(q, k, v))
-            bound = flash_bound(sb, st, sh, skv, sd, True, 2)
-            print(f"  time at {arch}'s shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+            bound = flash_bound(sb, st, sh, skv, sd, True, q.element_size())
+            print(f"  time at {arch}'s shape ({fa_kernel.route(q.dtype, sd)} kernel): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
                   f"{lib_ms:.4f} ms (events); device: kernel {k_dev:.4f} ms, plain "
                   f"{'not captured' if p_dev is None else f'{p_dev:.4f} ms'}, SDPA {l_dev:.4f} ms; "
                   f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}); kernel at "
                   f"{bound['bound_ms'] / k_dev:.3f} of its bound, {k_dev / l_dev:.2f}x SDPA; "
                   f"max |kernel - SDPA| {err_lib:.3e}")
-            shapes[arch] = dict(shape=f"{shape} bfloat16 causal", max_abs_err=errs[name], ms=ms,
+            shapes[arch] = dict(shape=f"{shape} {dt} causal", max_abs_err=errs[name], ms=ms,
                                 plain_ms=plain_ms, device_ms=k_dev, plain_device_ms=p_dev,
                                 library_ms=lib_ms, library_device_ms=l_dev, sdpa_err=err_lib,
                                 **bound)
@@ -3788,6 +3818,334 @@ def phase_family(dev, report, phase) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 25
+
+PARALLEL_ARCH = "kimi-k2-1t-a32b"  # the expert-parallel MoE's model
+# (b): two ranks on the one card, the experts cut as phase 24 cuts them (two
+# processes each hold the layer, its gradients and the local route's),
+# B x T tokens, in each compute dtype.
+PARALLEL_RANKS = 2
+PARALLEL_EXPERTS = 32
+PARALLEL_TOKENS = (1, 1024)
+PARALLEL_DTYPES = ("float32", "bfloat16")
+PARALLEL_JOIN_S = 240.0  # a rank that has not finished by then fails the phase
+# (b) against the single-process local route on the same rank: float32 to
+# FLOAT_RTOL (atol FLOAT_ATOL of the tensor's largest |value|); bfloat16 to
+# one bfloat16 step of the output (2^-7 relative, atol 2^-7 of its RMS):
+# the k gated outputs are summed in float32 by rank, the two partial sums
+# added by the all-reduce, and rounded once, so an output can land one
+# rounding step from the local route's, and that step carries into the
+# logits and the gradients.
+PARALLEL_BF16_TOL = dict(rtol=2.0**-7, atol_rms=2.0**-7)
+PIPE_ARCH = "qwen3-8b"  # (c): the pipeline's stage, Qwen3-8B's decoder layers
+PIPE_LAYERS = 8  # of 36, as phase 12 cuts them
+PIPE_MICRO = (2, 1, 4096)  # M microbatches of (B, T)
+
+
+def parallel_tol(ref, dtype: str) -> dict:
+    """(b)'s limits for ``ref`` (module constants above)."""
+    from repro_torch.testing import FLOAT_ATOL, FLOAT_RTOL
+
+    if dtype == "float32":
+        return dict(rtol=FLOAT_RTOL, atol=FLOAT_ATOL * max(float(ref.abs().max()), 1.0))
+    rms = float(ref.float().square().mean().sqrt())
+    return dict(rtol=PARALLEL_BF16_TOL["rtol"], atol=PARALLEL_BF16_TOL["atol_rms"] * rms)
+
+
+class counted_shard_map:
+    """Count the calls of `expert_parallel.moe_apply_shard_map` (the MoE
+    layer imports it at each call)."""
+
+    def __enter__(self):
+        from repro_torch.parallel import expert_parallel
+
+        self.calls, self.orig = 0, expert_parallel.moe_apply_shard_map
+
+        def counted(*a, **kw):
+            self.calls += 1
+            return self.orig(*a, **kw)
+
+        expert_parallel.moe_apply_shard_map = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.parallel import expert_parallel
+
+        expert_parallel.moe_apply_shard_map = self.orig
+
+
+def parallel_rank(rank, world, store_path, out_path, device):
+    """(b) on one rank (a spawned process): kimi-k2's layer at each dtype
+    on the local route (no context), then expert-parallel over a (1, world)
+    ("data", "model") mesh; logits, aux and the router's, `wi_gate`'s and
+    `wo`'s gradients held to the local route's; K2 counted.  Writes its
+    report as JSON to ``out_path``.  ``device`` is the card ("cuda")."""
+    import contextlib
+    import dataclasses
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs as C
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.launch.build import rules_for
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.parallel.constraints import activation_sharding
+
+    dev = resolve_device(device)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    report = {"rank": rank}
+    try:
+        mesh = make_mesh((1, world), ("data", "model"), dev)
+        b, t = PARALLEL_TOKENS
+        spec = C.get(PARALLEL_ARCH)
+        rules = rules_for(spec, ShapeCell("b", t, b, "train"), mesh)
+        for dt in PARALLEL_DTYPES:
+            cfg = family_cfg(PARALLEL_ARCH).replace(param_dtype=dt, compute_dtype=dt)
+            cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, num_experts=PARALLEL_EXPERTS))
+            torch.cuda.reset_peak_memory_stats()
+            model = Model(cfg, device=dev, seed=0)
+            for name, p in model.named_parameters():
+                p.requires_grad_(name.startswith("layers."))
+            moe = model.params_tree()["layers"][0]["moe"]
+            batch = family_batch(cfg, b, t, dev)
+            with torch.inference_mode():
+                model.forward(batch)  # warm-up: first-call set-up out of the times
+            runs, ms = {}, {}
+            for route in ("local", "parallel"):
+                scope = (activation_sharding(rules, mesh) if route == "parallel"
+                         else contextlib.nullcontext())
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                reset_flash_counts(flash_attention_cuda)
+                with counted_shard_map() as calls, scope:
+                    ev[0].record()
+                    with torch.no_grad():
+                        logits, aux = model.forward(batch)
+                    ev[1].record()
+                    loss, _ = model.loss_fn(batch)
+                    loss.backward()
+                    ev[2].record()
+                torch.cuda.synchronize()
+                runs[route] = dict(logits=logits, aux=aux, loss=loss.detach(),
+                                   grads={n: moe[n].grad.clone() for n in ("router", "wi_gate", "wo")},
+                                   launches=flash_counts(flash_attention_cuda),
+                                   shard_map_calls=calls.calls)
+                ms[route] = dict(forward_ms=ev[0].elapsed_time(ev[1]),
+                                 loss_and_backward_ms=ev[1].elapsed_time(ev[2]))
+                for p in model.parameters():
+                    p.grad = None
+            loc, par = runs["local"], runs["parallel"]
+            errs = {}
+            for what, ref, got in (("logits", loc["logits"], par["logits"]),
+                                   ("aux", loc["aux"], par["aux"]),
+                                   *((f"grad {n}", loc["grads"][n], par["grads"][n])
+                                     for n in ("router", "wi_gate", "wo"))):
+                errs[what] = close_on_device(ref, got, **parallel_tol(ref, dt),
+                                             what=f"rank {rank} {dt} {what}")
+            report[dt] = dict(errs=errs, ms=ms, launches=par["launches"],
+                              local_launches=loc["launches"],
+                              shard_map_calls=par["shard_map_calls"],
+                              local_shard_map_calls=loc["shard_map_calls"],
+                              aux=float(par["aux"]), loss=float(par["loss"]),
+                              peak_bytes=int(torch.cuda.max_memory_allocated()))
+            del model, moe, runs, loc, par, logits, aux, loss
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    Path(out_path).write_text(json.dumps(report))
+
+
+def phase_parallel(dev, report) -> dict:
+    """Phase 25: the parallel layer on the card.  (a) one process, world
+    size 1: kimi-k2's forward under `activation_sharding` runs the
+    expert-parallel MoE, bit-equal to the forward without a context; (b)
+    two processes on the one card over gloo (`parallel_rank`); (c)
+    `pipeline_apply` at S = 1 over Qwen3-8B's decoder layers, bit-equal to
+    the plain stack.  Returns K2's launches on the paths (a), (b) and (c)."""
+    import multiprocessing
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs as C
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.launch.build import rules_for
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import Model
+    from repro_torch.models.spec import flatten, unflatten
+    from repro_torch.parallel import pipeline_apply
+    from repro_torch.parallel.constraints import activation_sharding
+
+    print("phase 25: the parallel layer: (a) the expert-parallel MoE at world size 1, (b) at "
+          f"{PARALLEL_RANKS} processes on the one card over gloo, (c) the pipeline at S = 1")
+    out = {"launches": {}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    dist.init_process_group("gloo", store=dist.FileStore(f"{tmp}/store1", 1), rank=0,
+                            world_size=1)
+    try:
+        # (a) ------------------------------------------------------------
+        t_part = time.perf_counter()
+        cfg = family_cfg(PARALLEL_ARCH)
+        b, t = FAMILY_FWD[PARALLEL_ARCH]
+        torch.cuda.reset_peak_memory_stats()
+        model = Model(cfg, device=dev, seed=0)
+        batch = family_batch(cfg, b, t, dev)
+        mesh = make_mesh((1, 1), ("data", "model"), dev)
+        rules = rules_for(C.get(PARALLEL_ARCH), ShapeCell("a", t, b, "train"), mesh)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        with torch.inference_mode():
+            model.forward(batch)  # warm-up: first-call set-up out of the times
+            ev[0].record()
+            want, want_aux = model.forward(batch)
+            ev[1].record()
+            reset_flash_counts(flash_attention_cuda)
+            with activation_sharding(rules, mesh), counted_shard_map() as calls:
+                ev[2].record()
+                got, got_aux = model.forward(batch)
+                ev[3].record()
+            torch.cuda.synchronize()
+            launches = flash_counts(flash_attention_cuda)
+        a = dict(plain_ms=ev[0].elapsed_time(ev[1]), parallel_ms=ev[2].elapsed_time(ev[3]),
+                 launches=launches, shard_map_calls=calls.calls,
+                 bit_equal=bool(torch.equal(got, want) and torch.equal(got_aux, want_aux)),
+                 peak_bytes=int(torch.cuda.max_memory_allocated()))
+        print(f"  (a) {PARALLEL_ARCH}, {cfg.num_layers} layer, {cfg.moe.num_experts} experts, "
+              f"{cfg.compute_dtype}, B={b} T={t}, mesh (1, 1) (\"data\", \"model\"): forward "
+              f"{a['plain_ms']:.2f} ms without a context, {a['parallel_ms']:.2f} ms under "
+              f"activation_sharding (CUDA events, one call each); moe_apply_shard_map calls "
+              f"{calls.calls} (want {cfg.num_layers}); K2 launches {launches} (want 1 on the "
+              f"tensor cores); logits and aux bit-equal: {a['bit_equal']}; peak allocated "
+              f"{a['peak_bytes'] / 1e9:.2f} GB; [{time.perf_counter() - t_part:.1f} s]")
+        if calls.calls != cfg.num_layers or not a["bit_equal"]:
+            raise AssertionError(f"(a): {calls.calls} expert-parallel calls, bit-equal "
+                                 f"{a['bit_equal']}")
+        if launches != {"all": 1, "tensor_core": 1, "cuda_core": 0}:
+            raise AssertionError(f"(a): K2 launched {launches}")
+        out["a"] = a
+        out["launches"]["parallel_ep_forward"] = launches["tensor_core"]
+        del model, batch, want, got
+        torch.cuda.empty_cache()
+
+        # (b) ------------------------------------------------------------
+        t_part = time.perf_counter()
+        ctx = multiprocessing.get_context("spawn")
+        paths = [f"{tmp}/rank{r}.json" for r in range(PARALLEL_RANKS)]
+        procs = [ctx.Process(target=parallel_rank,
+                             args=(r, PARALLEL_RANKS, f"{tmp}/store2", paths[r], str(dev)))
+                 for r in range(PARALLEL_RANKS)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(PARALLEL_JOIN_S)
+        finally:
+            hung = [r for r, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        codes = [p.exitcode for p in procs]
+        if hung or any(c != 0 for c in codes):
+            raise AssertionError(f"(b): ranks {hung} hung after {PARALLEL_JOIN_S} s; exit codes "
+                                 f"{codes}")
+        ranks = [json.loads(Path(pth).read_text()) for pth in paths]
+        want_calls = 3  # the forward, the loss's forward and its remat recompute
+        for r in ranks:
+            for dt in PARALLEL_DTYPES:
+                res = r[dt]
+                route = "tensor_core" if dt == "bfloat16" else "cuda_core"
+                want_l = {"all": want_calls, "tensor_core": 0, "cuda_core": 0, route: want_calls}
+                print(f"  (b) rank {r['rank']} {dt}: {PARALLEL_ARCH}, 1 layer, "
+                      f"{PARALLEL_EXPERTS} of 384 experts, B x T = {PARALLEL_TOKENS}, mesh (1, "
+                      f"{PARALLEL_RANKS}); forward {res['ms']['parallel']['forward_ms']:.2f} ms "
+                      f"expert-parallel / {res['ms']['local']['forward_ms']:.2f} local, loss and "
+                      f"backward {res['ms']['parallel']['loss_and_backward_ms']:.2f} / "
+                      f"{res['ms']['local']['loss_and_backward_ms']:.2f} ms (CUDA events); "
+                      f"max |parallel - local|: " + ", ".join(
+                          f"{k} {v:.3e}" for k, v in res["errs"].items())
+                      + f"; K2 launches {res['launches']} (want {want_l}); expert-parallel "
+                      f"calls {res['shard_map_calls']} (want {want_calls}); aux {res['aux']:.6f};"
+                      f" peak allocated {res['peak_bytes'] / 1e9:.2f} GB")
+                if (res["launches"] != want_l or res["shard_map_calls"] != want_calls
+                        or res["local_shard_map_calls"] != 0):
+                    raise AssertionError(f"(b) rank {r['rank']} {dt}: launches "
+                                         f"{res['launches']}, calls {res['shard_map_calls']}")
+        print(f"  (b) [{time.perf_counter() - t_part:.1f} s]")
+        out["b"] = ranks
+        for dt in PARALLEL_DTYPES:
+            out["launches"][f"parallel_ep_2ranks_{dt}"] = ranks[0][dt]["launches"]["all"]
+
+        # (c) ------------------------------------------------------------
+        t_part = time.perf_counter()
+        m, pb, pt = PIPE_MICRO
+        cfg = C.get(PIPE_ARCH).model.replace(num_layers=PIPE_LAYERS)
+        torch.cuda.reset_peak_memory_stats()
+        model = Model(cfg, device=dev, seed=0)
+        layers = model.params_tree()["layers"]
+        # the layers stacked along a leading axis, the reference's layout
+        stacked = unflatten(layers[0], [torch.stack(leaf) for leaf in
+                                        zip(*(flatten(layer) for layer in layers))])
+        positions = torch.arange(pt, device=dev)[None, :].expand(pb, pt)
+
+        def stage_fn(params, h):
+            """The decoder stack over the stage's slice of the stacked layers."""
+            flat = flatten(params)
+            per_layer = [unflatten(params, [leaf[i] for leaf in flat])
+                         for i in range(flat[0].shape[0])]
+            return T.decoder_stack_apply(per_layer, cfg, h, positions=positions)[0]
+
+        pipe_mesh = make_mesh((1,), ("pod",), dev)
+        with torch.inference_mode():
+            micro = torch.stack([
+                model._inputs(model.params_tree(), family_batch(cfg, pb, pt, dev, seed=i), 0)[0]
+                for i in range(m)])
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            reset_flash_counts(flash_attention_cuda)
+            ev[0].record()
+            got = pipeline_apply(stage_fn, stacked, micro, mesh=pipe_mesh)
+            ev[1].record()
+            torch.cuda.synchronize()
+            launches = flash_counts(flash_attention_cuda)
+            ev[2].record()
+            plain = [T.decoder_stack_apply(layers, cfg, micro[i], positions=positions)[0]
+                     for i in range(m)]
+            ev[3].record()
+            torch.cuda.synchronize()
+            equal = all(torch.equal(got[i], plain[i]) for i in range(m))
+        c = dict(pipeline_ms=ev[0].elapsed_time(ev[1]), plain_ms=ev[2].elapsed_time(ev[3]),
+                 launches=launches, bit_equal=equal,
+                 peak_bytes=int(torch.cuda.max_memory_allocated()))
+        want_l = PIPE_LAYERS * m
+        print(f"  (c) pipeline_apply at S = 1 over {PIPE_ARCH}'s decoder, {PIPE_LAYERS} of "
+              f"{C.get(PIPE_ARCH).model.num_layers} layers (stacked), {cfg.compute_dtype}, M = "
+              f"{m} microbatches of (B, T) = ({pb}, {pt}): {c['pipeline_ms']:.2f} ms, the plain "
+              f"stack on each microbatch {c['plain_ms']:.2f} ms (CUDA events); outputs bit-equal "
+              f"to the plain stack's: {equal}; K2 launches {launches} (want {want_l} on the "
+              f"tensor cores); peak allocated {c['peak_bytes'] / 1e9:.2f} GB; S = 2 does not "
+              f"run on the card: gloo sends and receives CPU tensors only; "
+              f"[{time.perf_counter() - t_part:.1f} s]")
+        if not equal:
+            raise AssertionError("(c): the pipeline's outputs differ from the plain stack's")
+        if launches != {"all": want_l, "tensor_core": want_l, "cuda_core": 0}:
+            raise AssertionError(f"(c): K2 launched {launches}, want {want_l}")
+        out["c"] = c
+        out["launches"]["parallel_pipeline"] = launches["tensor_core"]
+        del model, layers, stacked, micro, got, plain
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    report["parallel"] = out
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None, help="also write the report JSON here")
@@ -3847,6 +4205,7 @@ def main(argv=None) -> int:
 
     failed = []
     times, fa_times, ssd_times, rn, fleet, service, launches = None, None, None, None, None, None, {}
+    parallel = None
     families = {name: None for name, _ in FAMILY_PHASES.values()}
     trains = {name: None for name, _ in TRAIN_PHASES.values()}  # then by path: launches a step
     seq = {}  # phase 2's traces, which phase 14 holds the fleet against
@@ -3868,6 +4227,7 @@ def main(argv=None) -> int:
         *((TRAIN_PHASES[n][0], lambda n=n: phase_train(dev, report, n)) for n in (12, 13)),
         *((FAMILY_PHASES[n][0], lambda n=n: phase_family(dev, report, n)) for n in FAMILY_PHASES),
         *((TRAIN_PHASES[n][0], lambda n=n: phase_train(dev, report, n)) for n in (21, 22, 23, 24)),
+        ("parallel", lambda: phase_parallel(dev, report)),
     ):
         t_phase = time.perf_counter()
         try:
@@ -3896,6 +4256,8 @@ def main(argv=None) -> int:
             families[name] = out
         elif name in trains:
             trains.update(out)
+        elif name == "parallel":
+            parallel = out
         elif name != "serve":
             launches[name] = out
     if args.out is not None:
@@ -4036,6 +4398,37 @@ def main(argv=None) -> int:
         "library_ms": t["library_ms"],  # scaled_dot_product_attention
         "library_device_ms": t["library_device_ms"],
     } for path, t in fa_times["shapes"].items() if path in TRAIN_FA_SHAPES)
+    # K2 on phase 25's paths: (a) the expert-parallel kimi-k2 forward at world
+    # size 1 (phase 17's shape), (b) its layer on two ranks (both dtypes, the
+    # launches of rank 0; rank 1's are the same), (c) the pipeline's stage
+    # (Qwen3-8B's forward shape), each timed in phase 5.
+    kernels.extend({
+        "name": "flash_attention_wgmma" if route == "tensor_core" else "flash_attention",
+        "route": "cuda",
+        "source": ("src/repro_torch/kernels/flash_attention/csrc/"
+                   + ("flash_attention_wgmma.cu" if route == "tensor_core"
+                      else "flash_attention.cu")),
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:113",
+        "path": path,
+        "shape": t["shape"],
+        "launches": parallel["launches"][path],
+        "max_abs_err": t["max_abs_err"],
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "device_ms": t["device_ms"],
+        "plain_device_ms": t["plain_device_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],  # scaled_dot_product_attention
+        "library_device_ms": t["library_device_ms"],
+    } for path, t, route in (
+        ("parallel_ep_forward", fa_times["shapes"][PARALLEL_ARCH], "tensor_core"),
+        ("parallel_ep_2ranks_bfloat16", fa_times["shapes"]["parallel_ep_2ranks_bfloat16"],
+         "tensor_core"),
+        ("parallel_ep_2ranks_float32", fa_times["shapes"]["parallel_ep_2ranks_float32"],
+         "cuda_core"),
+        ("parallel_pipeline", fa_times["tensor_core"], "tensor_core"),
+    ))
     kernels.extend({
         "name": "ssd_diag",
         "route": "cuda",

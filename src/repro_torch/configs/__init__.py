@@ -1,8 +1,8 @@
 """Architecture registry of the port (port of `repro/configs/__init__.py`).
 
 The reference's ten architectures, in its order, as selectable configs
-(``--arch <id>``) and their smoke variants.  The reference's shape cells
-(`repro/configs/shapes.py`) come with ROADMAP Queue 1 item 17.
+(``--arch <id>``), their smoke variants, and the shape cells
+(`configs.shapes`).
 """
 
 from __future__ import annotations
@@ -22,8 +22,10 @@ from repro_torch.configs import (
     zamba2_1p2b,
 )
 from repro_torch.configs.base import ArchSpec, ExecConfig, smoke_variant
+from repro_torch.configs.shapes import CELLS, ShapeCell, cell_applicable, input_specs
 
-__all__ = ["ARCHS", "ArchSpec", "ExecConfig", "REGISTRY", "get", "smoke", "smoke_variant"]
+__all__ = ["ARCHS", "ArchSpec", "CELLS", "ExecConfig", "REGISTRY", "ShapeCell",
+           "cell_applicable", "get", "input_specs", "smoke", "smoke_variant"]
 
 _MODULES = [
     whisper_tiny,

@@ -6,7 +6,8 @@ reference casts its float stubs (``patches``, ``frames``) to the compute
 dtype in numpy, which needs `ml_dtypes` for bfloat16; here they stay
 float32 (the same draws) and a caller casts them in torch.  `shard_batch`
 places a host batch on the model's device; the reference's places it with
-the step's mesh shardings, which come with ROADMAP Queue 1 item 17.
+the step's mesh shardings, which come with its `build_cell` (ROADMAP Queue
+1 item 17c).
 """
 
 from __future__ import annotations

@@ -11,8 +11,8 @@ model's frames and a VLM's patches).  ``--smoke`` takes the reduced
 same-family config.  Every architecture of the registry trains, with its
 `ExecConfig`'s optimizer (the MoE configs: Adafactor over the reference's
 stacked tree).  The reference's ``--mesh`` runs the full config across a
-production mesh; the port has one device, and a mesh other than ``none``
-raises (ROADMAP Queue 1 item 17).
+production mesh through its `build_cell`; until that is ported a mesh
+other than ``none`` raises (ROADMAP Queue 1 item 17c).
 """
 
 from __future__ import annotations
@@ -49,7 +49,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     args = ap.parse_args(argv)
     if args.mesh != "none":
         raise NotImplementedError(
-            f"--mesh {args.mesh}: sharded training is not ported yet (ROADMAP Queue 1 item 17)")
+            f"--mesh {args.mesh}: sharded training needs build_cell, not ported yet "
+            f"(ROADMAP Queue 1 item 17c)")
 
     spec = C.smoke(args.arch) if args.smoke else C.get(args.arch)
     ex = spec.exec

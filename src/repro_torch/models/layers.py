@@ -14,10 +14,11 @@ forward), when `_use_flash` says so.  Prefill, decode, bidirectional and
 cross-attention go through `_sdpa`, or `_chunked_sdpa` under
 ``attention_impl="chunked"``; the MoE's routing and expert products are
 plain torch ops, as the reference computes them outside any kernel.  The
-MoE takes the reference's local scatter/gather dispatch; its
-expert-parallel dispatch comes with ROADMAP Queue 1 item 17.  The
-reference's `shard_activation` constraints have no counterpart on one
-device.
+MoE takes the reference's local scatter/gather dispatch, or, inside an
+`activation_sharding` context whose mesh has a model axis dividing the
+experts, the expert-parallel dispatch of `parallel.expert_parallel`.
+`shard_activation` pins activations where the reference does; it is the
+identity outside a context and on plain tensors.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.models.spec import TensorSpec
+from repro_torch.parallel.constraints import shard_activation
 
 __all__ = [
     "apply_rope",
@@ -42,6 +44,7 @@ __all__ = [
     "mlp_apply",
     "mlp_specs",
     "moe_apply",
+    "moe_experts",
     "moe_route",
     "moe_specs",
     "norm_apply",
@@ -155,6 +158,9 @@ def _project_qkv(p: Params, cfg: ModelConfig, xq: torch.Tensor,
     q = torch.einsum("btd,dhk->bthk", xq, p["wq"].to(cd))
     k = torch.einsum("bsd,dhk->bshk", xkv, p["wk"].to(cd))
     v = torch.einsum("bsd,dhk->bshk", xkv, p["wv"].to(cd))
+    q = shard_activation(q, ("batch", "seq", "heads", "head_dim"))
+    k = shard_activation(k, ("batch", "seq", "kv_heads", "head_dim"))
+    v = shard_activation(v, ("batch", "seq", "kv_heads", "head_dim"))
     if "bq" in p:
         q = q + p["bq"].to(cd)
         k = k + p["bk"].to(cd)
@@ -309,7 +315,9 @@ def attn_apply(
                              f"positions [{idx}, {idx + t})")
         cache["k"][:, idx:idx + t] = k
         cache["v"][:, idx:idx + t] = v
-        k, v = cache["k"], cache["v"]
+        cache_axes = ("batch", "cache_seq", "kv_heads", "head_dim")
+        k = shard_activation(cache["k"], cache_axes)
+        v = shard_activation(cache["v"], cache_axes)
         kv_len = idx + t
         q_offset = idx
 
@@ -322,6 +330,7 @@ def attn_apply(
     else:
         out = _sdpa(q, k, v, causal=causal and self_attn, q_offset=q_offset, kv_len=kv_len)
 
+    out = shard_activation(out, ("batch", "seq", "heads", "head_dim"))
     y = torch.einsum("bthk,hkd->btd", out, p["wo"].to(cfg.cdtype))
     if "bo" in p:
         y = y + p["bo"].to(cfg.cdtype)
@@ -354,15 +363,18 @@ def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, TensorS
 
 def mlp_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     cd = cfg.cdtype
+    ffn_axes = ("batch", "seq", "ffn")
     if cfg.mlp_act == "swiglu":
         gate = torch.einsum("btd,df->btf", x, p["wi_gate"].to(cd))
         up = torch.einsum("btd,df->btf", x, p["wi_up"].to(cd))
         h = F.silu(gate.to(_F32)).to(cd) * up
+        h = shard_activation(h, ffn_axes)
         return torch.einsum("btf,fd->btd", h, p["wo"].to(cd))
     h = torch.einsum("btd,df->btf", x, p["wi"].to(cd))
     if "bi" in p:
         h = h + p["bi"].to(cd)
     h = F.gelu(h.to(_F32), approximate="tanh").to(cd)  # jax.nn.gelu's default
+    h = shard_activation(h, ffn_axes)
     y = torch.einsum("btf,fd->btd", h, p["wo"].to(cd))
     if "bo" in p:
         y = y + p["bo"].to(cd)
@@ -441,46 +453,77 @@ def moe_route(router: torch.Tensor, moe: MoEConfig,
             "slot": slot, "capacity": cap, "aux": aux}
 
 
+def moe_experts(wi_gate: torch.Tensor, wi_up: torch.Tensor, wo: torch.Tensor,
+                cfg: ModelConfig, xf: torch.Tensor, r: Dict[str, torch.Tensor],
+                keep: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """The stacked expert SwiGLU over ``xf`` (N, d) tokens routed by ``r``
+    (`moe_route`), for the experts ``wi_gate``/``wi_up``/``wo`` hold: E' of
+    them, pairs ``keep``-ed into ``slot`` < E'·capacity.  Returns the k
+    gated outputs of each token summed in float32, (N, d), unrounded.
+
+    Tokens go into an (E'·C, d) slot buffer, through the experts as batched
+    products, and back.  A dropped pair adds nothing: its token's residual
+    passes through.
+    """
+    cd = cfg.cdtype
+    n, d = xf.shape
+    k, cap, e = cfg.moe.top_k, r["capacity"], wi_gate.shape[0]
+    # Scatter (k copies of the tokens, k-major) into the slot buffer; the
+    # slots are distinct but for the overflow row, which is dropped.
+    buf = torch.zeros((e * cap + 1, d), dtype=cd, device=xf.device)
+    buf.index_add_(0, slot, xf.to(cd).repeat(k, 1))
+    buf = shard_activation(buf[:e * cap].reshape(e, cap, d), ("experts", "capacity", "act_embed"))
+    gate = torch.bmm(buf, wi_gate.to(cd))
+    up = torch.bmm(buf, wi_up.to(cd))
+    h = F.silu(gate.to(_F32)).to(cd) * up
+    h = shard_activation(h, ("experts", "capacity", "expert_ffn"))
+    out_buf = torch.bmm(h, wo.to(cd))
+    out_flat = shard_activation(out_buf, ("experts", "capacity", "act_embed")).reshape(e * cap, d)
+    gathered = out_flat[torch.clamp_max(slot, e * cap - 1)]
+    gathered = gathered.masked_fill(~keep[:, None], 0.0)
+    flat_gates = r["gates"].T.reshape(-1)
+    weighted = gathered * flat_gates[:, None].to(cd)
+    return weighted.to(_F32).reshape(k, n, d).sum(0)
+
+
 def moe_apply(p: Dict[str, Any], cfg: ModelConfig,
               x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k capacity-limited MoE (the reference's local scatter/gather
-    dispatch).  Returns (output, aux loss).
+    """Top-k capacity-limited MoE.  Returns (output, aux loss).
 
-    Tokens go into an (E·C, d) slot buffer by their slot (`moe_route`),
-    through the stacked expert SwiGLU as batched products, and back.  A
-    dropped pair adds nothing: its token's residual passes through.  The
-    k gated outputs (each a compute-dtype product of output and gate) are
-    summed in float32 and rounded once to the compute dtype, which is how
-    the reference's `jnp.sum` over them accumulates.
+    Two dispatch paths share the routing math (`moe_route`) and the expert
+    products (`moe_experts`):
+
+      * **expert-parallel** (inside an `activation_sharding` context whose
+        mesh has a model axis dividing the experts): tokens split over the
+        data axes, experts over the model axis, one all-reduce combine —
+        `parallel.expert_parallel`;
+      * **local scatter/gather** (the reference's local dispatch).
+
+    The k gated outputs (each a compute-dtype product of output and gate)
+    are summed in float32 and rounded once to the compute dtype, which is
+    how the reference's `jnp.sum` over them accumulates.
     """
     if cfg.moe is None:
         raise ValueError("moe_apply needs a MoEConfig")
-    moe, cd = cfg.moe, cfg.cdtype
-    b, t, d = x.shape
-    n = b * t
-    e, k = moe.num_experts, moe.top_k
-    xf = x.reshape(n, d)
-    r = moe_route(p["router"], moe, xf)
-    cap = r["capacity"]
-    # Scatter (k copies of the tokens, k-major) into the slot buffer; the
-    # slots are distinct but for the overflow row, which is dropped.
-    buf = torch.zeros((e * cap + 1, d), dtype=cd, device=x.device)
-    buf.index_add_(0, r["slot"], xf.to(cd).repeat(k, 1))
-    buf = buf[:e * cap].reshape(e, cap, d)
-    gate = torch.bmm(buf, p["wi_gate"].to(cd))
-    up = torch.bmm(buf, p["wi_up"].to(cd))
-    h = F.silu(gate.to(_F32)).to(cd) * up
-    out_flat = torch.bmm(h, p["wo"].to(cd)).reshape(e * cap, d)
-    gathered = out_flat[torch.clamp_max(r["slot"], e * cap - 1)]
-    gathered = gathered.masked_fill(~r["keep"][:, None], 0.0)
-    flat_gates = r["gates"].T.reshape(-1)
-    weighted = gathered * flat_gates[:, None].to(cd)
-    y = weighted.to(_F32).reshape(k, n, d).sum(0).to(cd).reshape(b, t, d)
+    from repro_torch.parallel.expert_parallel import (  # local: it imports this module
+        moe_apply_shard_map,
+        moe_shard_map_available,
+    )
+
+    if moe_shard_map_available(cfg, x.shape):
+        y, aux = moe_apply_shard_map(p, cfg, x)
+    else:
+        b, t, d = x.shape
+        xf = x.reshape(b * t, d)
+        r = moe_route(p["router"], cfg.moe, xf)
+        y = moe_experts(p["wi_gate"], p["wi_up"], p["wo"], cfg, xf, r, r["keep"], r["slot"])
+        y = shard_activation(y.to(cfg.cdtype).reshape(b, t, d), ("batch", "seq", "act_embed"))
+        aux = r["aux"]
     if "shared" in p:
         y = y + mlp_apply(p["shared"], cfg.replace(mlp_act="swiglu"), x)
     if "dense" in p:
         y = y + mlp_apply(p["dense"], cfg, x)
-    return y, r["aux"]
+    return y, aux
 
 
 # ---------------------------------------------------------------------------
@@ -528,7 +571,8 @@ def cast_gather(table: torch.Tensor, index: torch.Tensor, dtype: torch.dtype) ->
 
 
 def embed_apply(p: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return cast_gather(p["embedding"], tokens, cfg.cdtype)
+    emb = cast_gather(p["embedding"], tokens, cfg.cdtype)
+    return shard_activation(emb, ("batch", "seq", "act_embed"))
 
 
 def unembed_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -537,4 +581,5 @@ def unembed_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         w = p["embedding"].to(cfg.cdtype).T
     else:
         w = p["unembed"].to(cfg.cdtype)
-    return torch.einsum("btd,dv->btv", x, w).to(_F32)
+    logits = torch.einsum("btd,dv->btv", x, w).to(_F32)
+    return shard_activation(logits, ("batch", "seq", "vocab"))

@@ -57,7 +57,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.spec import TensorSpec, count_params, init_tree, leaves, tree_map
 from repro_torch.parallel.remat import remat_wrap
 
-__all__ = ["STACKS", "Model", "active_params", "total_params"]
+__all__ = ["STACKS", "Model", "active_params", "cache_specs", "total_params"]
 
 Tree = Dict[str, Any]
 
@@ -125,6 +125,21 @@ def _param_specs(cfg: ModelConfig, *, stacked: bool = True) -> Tree:
     else:
         raise ValueError(f"unknown family {cfg.family!r}")
     specs["final_norm"] = L.norm_specs(cfg)
+    return specs
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, TensorSpec]:
+    """The decode cache's tree (`Model.cache_specs`), from the config alone."""
+    if cfg.family == "ssm":
+        return S.ssm_state_specs(cfg, batch, cfg.num_layers)
+    if cfg.family == "hybrid":
+        return H.hybrid_state_specs(cfg, batch, max_len)
+    specs = L.init_kv_cache_specs(cfg, batch, max_len, cfg.num_layers)
+    if cfg.family == "encdec":
+        shape = (cfg.num_layers, batch, cfg.encoder.source_len, cfg.num_kv_heads, cfg.head_dim)
+        axes = ("layers", "batch", None, "kv_heads", "head_dim")
+        specs["xk"] = TensorSpec(shape, cfg.cdtype, axes)
+        specs["xv"] = TensorSpec(shape, cfg.cdtype, axes)
     return specs
 
 
@@ -339,19 +354,7 @@ class Model(nn.Module):
     # -- decode cache ----------------------------------------------------------
 
     def cache_specs(self, batch: int, max_len: int) -> Dict[str, TensorSpec]:
-        cfg = self.cfg
-        if cfg.family == "ssm":
-            return S.ssm_state_specs(cfg, batch, cfg.num_layers)
-        if cfg.family == "hybrid":
-            return H.hybrid_state_specs(cfg, batch, max_len)
-        specs = L.init_kv_cache_specs(cfg, batch, max_len, cfg.num_layers)
-        if cfg.family == "encdec":
-            shape = (cfg.num_layers, batch, cfg.encoder.source_len, cfg.num_kv_heads,
-                     cfg.head_dim)
-            axes = ("layers", "batch", None, "kv_heads", "head_dim")
-            specs["xk"] = TensorSpec(shape, cfg.cdtype, axes)
-            specs["xv"] = TensorSpec(shape, cfg.cdtype, axes)
-        return specs
+        return cache_specs(self.cfg, batch, max_len)
 
     def init_cache(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
         return {k: torch.zeros(s.shape, dtype=s.dtype, device=self.device)

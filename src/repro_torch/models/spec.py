@@ -1,11 +1,18 @@
 """Parameter and state specification trees (port of `repro/models/spec.py`).
 
 A model describes its parameters once, as a nested dict of `TensorSpec`
-(shape, dtype, logical axes, initializer); `init_tree` materializes it on a
-device from a `torch.Generator`, and `count_params` / `tree_bytes` size it
-without allocating anything.  The reference's `abstract_tree` and
-`partition_tree` serve its AOT dry-runs and mesh sharding; they come with
-the port of `parallel/` (ROADMAP Queue 1 item 17).
+(shape, dtype, logical axes, initializer).  The same spec tree is then
+materialized three ways:
+
+  * ``init_tree(generator, specs)``  → real tensors on a device;
+  * ``abstract_tree(specs)``         → tensors on the ``meta`` device, the
+                                       twin of `jax.ShapeDtypeStruct`: shape
+                                       and dtype, no allocation;
+  * ``partition_tree(specs, rules)`` → a `PartitionSpec` per leaf, each
+                                       logical axis mapped through ``rules``
+                                       (see `parallel.sharding`).
+
+`count_params` / `tree_bytes` size a tree without allocating anything.
 
 Random initial values differ from the reference's (`jax.random` and
 `torch.Generator` draw different numbers from one seed); tests that compare
@@ -20,8 +27,8 @@ from typing import Any, Callable, Iterator, List, Optional, Tuple
 
 import torch
 
-__all__ = ["TensorSpec", "count_params", "flatten", "init_tree", "leaves", "tree_bytes",
-           "tree_map", "unflatten"]
+__all__ = ["TensorSpec", "abstract_tree", "count_params", "flatten", "init_tree", "is_spec",
+           "leaves", "partition_tree", "tree_bytes", "tree_map", "unflatten"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,10 +47,17 @@ class TensorSpec:
             raise ValueError(f"axes {self.axes} do not match shape {self.shape}")
 
 
+def is_spec(x: Any) -> bool:
+    return isinstance(x, TensorSpec)
+
+
 def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
-    """``fn`` over the leaves of a tree of dicts and lists (specs or tensors)."""
+    """``fn`` over the leaves of a tree of dicts, lists and tuples (specs or
+    tensors)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):  # a NamedTuple (`OptState`)
+        return type(tree)(*(tree_map(fn, v) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
@@ -108,6 +122,26 @@ def init_tree(generator: torch.Generator, specs: Any, device=None) -> Any:
     drawing each leaf in turn from ``generator``."""
     dev = torch.device(device) if device is not None else generator.device
     return tree_map(lambda s: _init(s, generator, dev), specs)
+
+
+def abstract_tree(specs: Any) -> Any:
+    """Stand-ins on the ``meta`` device (shape and dtype, no allocation)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"), specs)
+
+
+def partition_tree(specs: Any, rules: dict) -> Any:
+    """Map logical axes → mesh axes through ``rules`` (None = replicated).
+
+    A rule value may be a mesh-axis name, a tuple of mesh axes, or None.
+    Axes missing from ``rules`` are replicated; trailing Nones are trimmed.
+    """
+    from repro_torch.parallel.sharding import PartitionSpec  # local: avoids an import cycle
+
+    def leaf_pspec(s: TensorSpec) -> PartitionSpec:
+        entries = [rules.get(ax) if ax is not None else None for ax in s.axes]
+        return PartitionSpec(*entries)
+
+    return tree_map(leaf_pspec, specs)
 
 
 def count_params(specs: Any) -> int:

@@ -26,8 +26,7 @@ the log-decays are summed in float64 and rounded once to float32
 (`_cumsum`), on the CPU and the card alike, as the SSD kernel sums them.  Heads read their
 B/C group (``h // (H // G)``) through broadcast views rather than the
 reference's ``jnp.repeat`` copies, and the kernel takes B and C per group
-and reads each head's group itself; the reference's `shard_activation` constraints have no
-counterpart on one device.
+and reads each head's group itself.
 """
 
 from __future__ import annotations
@@ -40,6 +39,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.ssd.ops import ssd_diag_chunk
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.spec import TensorSpec
+from repro_torch.parallel.constraints import shard_activation
 
 __all__ = [
     "ssm_specs",
@@ -302,6 +302,8 @@ def ssm_apply(
 
     z = torch.einsum("btd,de->bte", u, p["wz"].to(cd))
     x = torch.einsum("btd,de->bte", u, p["wx"].to(cd))
+    z = shard_activation(z, ("batch", "seq", "ssm_inner"))
+    x = shard_activation(x, ("batch", "seq", "ssm_inner"))
     Braw = torch.einsum("btd,de->bte", u, p["wB"].to(cd))
     Craw = torch.einsum("btd,de->bte", u, p["wC"].to(cd))
     dt_raw = torch.einsum("btd,dh->bth", u, p["wdt"].to(cd))
@@ -342,8 +344,9 @@ def ssm_apply(
 
     y = y + p["D"][None, None, :, None] * xh.to(_F32)
     y = y.to(cd).reshape(b, t, di)
-    y = _gated_norm(y, z, p["norm_scale"])
+    y = shard_activation(_gated_norm(y, z, p["norm_scale"]), ("batch", "seq", "ssm_inner"))
     out = torch.einsum("bte,ed->btd", y, p["out_proj"].to(cd))
+    out = shard_activation(out, ("batch", "seq", "act_embed"))
 
     new_state = {"ssd": new_ssd, "conv": torch.cat([cpx, cpb, cpc], dim=-1)}
     return out, new_state

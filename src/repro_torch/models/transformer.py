@@ -21,6 +21,7 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.spec import TensorSpec, tree_map
+from repro_torch.parallel.constraints import shard_activation
 from repro_torch.parallel.remat import remat_wrap
 
 __all__ = ["block_apply", "block_specs", "decoder_stack_apply", "decoder_stack_specs",
@@ -144,7 +145,7 @@ def decoder_stack_apply(
                               cache_index=cache_index,
                               cross_source=cross_source if cross_cache is None else None,
                               cross_cache=cross_cache, use_rope=cfg.pos_emb == "rope")
-        return x, a
+        return shard_activation(x, ("batch", "seq", "act_embed")), a
 
     body = _maybe_remat(body, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -209,7 +210,8 @@ def encoder_stack_apply(params: Dict[str, Any], cfg: ModelConfig,
                                    use_rope=False)
         h = h + attn_out
         h2 = L.norm_apply(p["mlp_norm"], enc_cfg, h)
-        return h + L.mlp_apply(p["mlp"], enc_cfg, h2)
+        return shard_activation(h + L.mlp_apply(p["mlp"], enc_cfg, h2),
+                                ("batch", "seq", "act_embed"))
 
     body = _maybe_remat(body, cfg)
     for p in params["layers"]:

@@ -13,7 +13,8 @@ Policies (selected per config by ``ModelConfig.remat_policy``):
 The reference wraps its `lax.scan` body in `jax.checkpoint`; the port's
 stacks call the wrapped body once per layer.  Both checkpointing policies
 use `torch.utils.checkpoint.checkpoint` without reentrancy, so a layer's
-kernels run twice in a training step: in the forward and in the recompute.
+kernels run twice in a training step: in the forward and in the recompute,
+which runs under the forward's `activation_sharding` context.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ from torch.utils.checkpoint import (
     checkpoint,
     create_selective_checkpoint_contexts,
 )
+
+from repro_torch.parallel.constraints import activation_sharding, current_context
 
 __all__ = ["POLICIES", "remat_wrap"]
 
@@ -47,13 +50,30 @@ def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def _in_context(fn: Callable) -> Callable:
+    """``fn`` under the `activation_sharding` context active where this is
+    called (the forward), so that a checkpoint's recompute takes the route
+    the forward took: on the card it runs in autograd's thread, where the
+    forward's thread-local context is not set."""
+    ctx = current_context()
+    if ctx is None:
+        return fn
+
+    def body(*a, **kw):
+        with activation_sharding(*ctx):
+            return fn(*a, **kw)
+
+    return body
+
+
 def remat_wrap(fn: Callable, policy: str) -> Callable:
     if policy == "none":
         return fn
     if policy == "dots":
         context_fn = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
         return functools.wraps(fn)(lambda *a, **kw: checkpoint(
-            fn, *a, use_reentrant=False, context_fn=context_fn, **kw))
+            _in_context(fn), *a, use_reentrant=False, context_fn=context_fn, **kw))
     if policy == "full":
-        return functools.wraps(fn)(lambda *a, **kw: checkpoint(fn, *a, use_reentrant=False, **kw))
+        return functools.wraps(fn)(lambda *a, **kw: checkpoint(
+            _in_context(fn), *a, use_reentrant=False, **kw))
     raise ValueError(f"unknown remat policy {policy!r}; expected one of {POLICIES}")

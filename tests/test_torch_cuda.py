@@ -910,3 +910,91 @@ def test_adafactor_stacked_on_the_card_matches_the_cpu(dev):
         for (name, a), (_, b) in zip(leaves(part_dev), leaves(part_cpu)):
             assert_close(b.numpy(), a.cpu().numpy(), rtol=1e-4, atol=1e-5, what=name)
     assert tuple(s_dev.inner["layers"]["scale"]["vr"].shape) == (4,)
+
+
+# ---------------------------------------------------------------- the parallel layer
+
+
+@pytest.fixture
+def one_rank(dev, tmp_path):
+    """A gloo world of this process alone (the card's meshes at world size 1)."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    yield dev
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_expert_parallel_at_world_size_one_is_the_local_route(one_rank, cd):
+    """Under a (1, 1) mesh the MoE takes `moe_apply_shard_map` with no
+    collective: output, aux and gradients bit-equal to the local route."""
+    from repro_torch import configs as C
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.launch.build import rules_for
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models.spec import init_tree, tree_map
+    from repro_torch.parallel import expert_parallel
+    from repro_torch.parallel.constraints import activation_sharding
+
+    spec = C.smoke("kimi-k2-1t-a32b")
+    cfg = spec.model.replace(param_dtype=cd, compute_dtype=cd)
+    p = init_tree(torch.Generator(device=one_rank).manual_seed(0), L.moe_specs(cfg), one_rank)
+    x = torch.randn((2, 64, cfg.d_model), generator=torch.Generator(device=one_rank).manual_seed(1),
+                    device=one_rank).to(cfg.cdtype)
+    mesh = make_mesh((1, 1), ("data", "model"), one_rank)
+    rules = rules_for(spec, ShapeCell("t", 64, 2, "train"), mesh)
+    outs = []
+    for ctx in (None, (rules, mesh)):
+        q = tree_map(lambda a: a.detach().clone().requires_grad_(True), p)
+        xq = x.clone().requires_grad_(True)
+        assert expert_parallel.moe_shard_map_available(cfg, x.shape) is False
+        if ctx is None:
+            y, aux = L.moe_apply(q, cfg, xq)
+        else:
+            with activation_sharding(*ctx):
+                assert expert_parallel.moe_shard_map_available(cfg, x.shape)
+                y, aux = L.moe_apply(q, cfg, xq)
+        ((y.float() ** 2).sum() + aux).backward()
+        outs.append((y, aux, xq.grad, {k: v.grad for k, v in q.items() if k != "shared"}))
+    (y0, a0, gx0, gp0), (y1, a1, gx1, gp1) = outs
+    assert torch.equal(y0, y1) and torch.equal(a0, a1) and torch.equal(gx0, gx1)
+    for k in gp0:
+        assert torch.equal(gp0[k], gp1[k]), k
+
+
+def test_pipeline_at_one_stage_is_the_plain_stack(one_rank):
+    """`pipeline_apply` at S = 1 over a smoke Qwen3's stacked decoder
+    layers: the plain stack's outputs bit for bit, K2 once a layer and
+    microbatch."""
+    from repro_torch import configs as C
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import Model
+    from repro_torch.models.spec import flatten, unflatten
+    from repro_torch.parallel import pipeline_apply
+
+    cfg = C.smoke("qwen3-8b").model.replace(attention_impl="auto")
+    model = Model(cfg, device=one_rank, seed=0)
+    layers = model.params_tree()["layers"]
+    stacked = unflatten(layers[0], [torch.stack(leaf) for leaf in
+                                    zip(*(flatten(layer) for layer in layers))])
+    m, t = 3, 128
+    positions = torch.arange(t, device=one_rank)[None, :]
+
+    def stage_fn(params, h):
+        flat = flatten(params)
+        per_layer = [unflatten(params, [leaf[i] for leaf in flat]) for i in range(flat[0].shape[0])]
+        return T.decoder_stack_apply(per_layer, cfg, h, positions=positions)[0]
+
+    micro = torch.randn((m, 1, t, cfg.d_model), device=one_rank).to(cfg.cdtype)
+    mesh = make_mesh((1,), ("pod",), one_rank)
+    with torch.inference_mode():
+        before = fa_kernel.flash_attention_cuda.launches
+        got = pipeline_apply(stage_fn, stacked, micro, mesh=mesh)
+        assert fa_kernel.flash_attention_cuda.launches == before + cfg.num_layers * m
+        for i in range(m):
+            want = T.decoder_stack_apply(layers, cfg, micro[i], positions=positions)[0]
+            assert torch.equal(got[i], want)

@@ -1,0 +1,198 @@
+"""Multi-process helpers of the port's parallel tests (a helper module, not
+a test file): `spawn` runs a function on every rank of a gloo world in
+fresh processes, and `fake_world` builds one process's fake world, in
+which a mesh of 256 or 512 ranks exists without its peers.
+
+`spawn` meets through a `FileStore` under the test's ``tmp_path`` (no TCP
+port, so tests in parallel workers cannot collide), gives the group and
+the join a timeout, and fails on a rank that fails or hangs.  The workers
+import torch and the port, never JAX: the test compares their results
+with the JAX reference in its own process.  `fake_world` leans on
+`torch.testing._internal.distributed.fake_pg`, which is not a public API.
+"""
+
+import contextlib
+import datetime
+import multiprocessing
+import os
+import pickle
+import sys
+import threading
+import traceback
+
+import torch
+import torch.distributed as dist
+
+JOIN_TIMEOUT_S = 240.0
+GROUP_TIMEOUT_S = 120.0
+
+
+def _entry(fn, rank, world, store_path, out_dir, args):
+    try:
+        sys.path[:0] = [os.path.dirname(__file__)]
+        torch.set_num_threads(1)
+        store = dist.FileStore(store_path, world)
+        dist.init_process_group("gloo", store=store, rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+        try:
+            out = fn(rank, world, *args)
+        finally:
+            dist.destroy_process_group()
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    except BaseException:
+        traceback.print_exc()
+        sys.exit(1)
+
+
+def spawn(fn, world, tmp_path, *args):
+    """``fn(rank, world, *args)`` on each rank of a gloo world of ``world``
+    processes; returns the ranks' results in rank order.  ``fn`` must be a
+    module-level function of a module that does not import JAX."""
+    ctx = multiprocessing.get_context("spawn")
+    out_dir = str(tmp_path)
+    store = os.path.join(out_dir, "store")
+    procs = [ctx.Process(target=_entry, args=(fn, r, world, store, out_dir, args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(JOIN_TIMEOUT_S)
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        failed = [r for r, p in enumerate(procs) if p.exitcode not in (0, None)]
+        assert not hung, f"ranks {hung} still running after {JOIN_TIMEOUT_S} s"
+        assert not failed, f"ranks {failed} failed (exit codes {[p.exitcode for p in procs]})"
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    out = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+@contextlib.contextmanager
+def fake_world(size: int):
+    """This process as rank 0 of a fake world of ``size`` ranks (no peers;
+    collectives return without moving data)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def numpy_tree(tree):
+    """A tree of tensors as float32 numpy arrays (results cross processes so)."""
+    from repro_torch.models.spec import tree_map
+
+    return tree_map(lambda t: None if t is None else t.detach().float().numpy(), tree)
+
+
+# ----------------------------------------------------------------- workers
+
+
+def ep_worker(rank, world, jobs, mesh_shape):
+    """The expert-parallel MoE on this rank, under ``rules_for`` on a mesh
+    of ``mesh_shape`` over ("data", "model").  Each job is
+
+      * ``("model", arch, cfg, params, batch)``: the forward's logits and
+        aux, and every parameter's gradient of ce + z_loss, its backward run
+        in another thread, outside the context (autograd's device thread on
+        the card runs a checkpoint's recompute so);
+      * ``("layer", arch, cfg, p, x, c)``: `moe_apply` on ``x``: its
+        output and aux, and the gradients of sum(y · c) + aux in ``x`` and
+        every leaf of ``p``;
+
+    with the number of `moe_apply_shard_map` calls each made."""
+    from repro_torch import configs as C
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.launch.build import rules_for
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Model
+    from repro_torch.models.spec import tree_map
+    from repro_torch.parallel import expert_parallel
+    from repro_torch.parallel.constraints import activation_sharding
+
+    calls = []
+    shard_map = expert_parallel.moe_apply_shard_map
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return shard_map(*a, **kw)
+
+    expert_parallel.moe_apply_shard_map = counted
+    mesh = make_mesh(mesh_shape, ("data", "model"), "cpu")
+    results = []
+    for kind, arch, cfg, *args in jobs:
+        calls.clear()
+        out = {"coords": (mesh.get_local_rank("data"), mesh.get_local_rank("model"))}
+        if kind == "model":
+            params, batch = args
+            b, t = batch["tokens"].shape
+            rules = rules_for(C.smoke(arch), ShapeCell("t", t, b, "train"), mesh)
+            model = Model(cfg, params=tree_map(torch.from_numpy, params), device="cpu")
+            tree = model.params_tree()
+            for p in model.parameters():
+                p.requires_grad_(True)
+            with activation_sharding(rules, mesh):
+                with torch.no_grad():
+                    logits, aux = model.forward(batch)
+                _, m = model.loss_fn(batch)
+            errors = []
+
+            def backward():
+                try:
+                    (m["ce"] + m["z_loss"]).backward()
+                except BaseException as e:  # re-raised in this thread
+                    errors.append(e)
+
+            thread = threading.Thread(target=backward)
+            thread.start()
+            thread.join()
+            if errors:
+                raise errors[0]
+            out.update(logits=logits.numpy(), aux=float(aux),
+                       grads=numpy_tree(tree_map(lambda p: p.grad, tree)))
+        else:
+            p, x, c = args
+            b, t, _ = x.shape
+            rules = rules_for(C.smoke(arch), ShapeCell("t", t, b, "train"), mesh)
+            p = tree_map(lambda a: torch.from_numpy(a).requires_grad_(True), p)
+            x = torch.from_numpy(x).requires_grad_(True)
+            with activation_sharding(rules, mesh):
+                y, aux = L.moe_apply(p, cfg, x)
+                ((y.float() * torch.from_numpy(c)).sum() + aux).backward()
+            out.update(y=y.detach().numpy(), aux=float(aux.detach()), gx=x.grad.numpy(),
+                       gp=numpy_tree(tree_map(lambda a: a.grad, p)))
+        out["shard_map_calls"] = len(calls)
+        results.append(out)
+    return results
+
+
+def pipeline_worker(rank, world, w, xs, mesh_shape, axes):
+    """`pipeline_apply` over ``tanh(h @ w_i)`` stages on this rank: the
+    outputs and the gradients of sum(out²) in ``w`` and ``xs``."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.pipeline import pipeline_apply
+
+    mesh = make_mesh(mesh_shape, axes, "cpu")
+
+    def stage_fn(w_local, h):
+        for wi in w_local:
+            h = torch.tanh(h @ wi)
+        return h
+
+    w = torch.from_numpy(w).requires_grad_(True)
+    xs = torch.from_numpy(xs).requires_grad_(True)
+    out = pipeline_apply(stage_fn, w, xs, mesh=mesh)
+    (out ** 2).sum().backward()
+    return {"out": out.detach().numpy(), "gw": w.grad.numpy(), "gx": xs.grad.numpy(),
+            "stage": mesh.get_local_rank("pod")}
