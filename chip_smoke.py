@@ -169,6 +169,16 @@ Phases, each reported on its own lines:
      4096), bit-equal to the plain stack on each.  S = 2 does not run on
      the card: the hand-offs are point-to-point, and gloo sends and
      receives CPU tensors only.
+ 26. the dry-run, the step cost analysis and the tuner (`launch.build`,
+     `launch.hlo_analysis`, `launch.dryrun`, `launch.autotune`): (a) at a
+     (1, 1) mesh (a gloo group of one), Qwen3-8B's training cell of
+     phase 12 (8 layers, 2 x 4096 in 2) and its decode at phase 7's batch
+     (36 layers, 4 x 1024 cache): the dry-run's peak bytes, flops and
+     K2/K3 calls beside one real run of the same step on the card
+     (`max_memory_allocated`, launches); (b) the reference's qwen3-8b x
+     decode_32k x single_pod cell on 256 ranks of a fake world; (c)
+     `run_autotune` on it, its BO on the card and on the CPU.  (b) and (c)
+     run in subprocesses while (a) runs.
 
 Phases 2-4, 14 and 15 are the paths that run the EI/argmax kernel, phases 6 and
 12 the paths that run the tensor-core flash-attention kernel (the bfloat16
@@ -196,7 +206,13 @@ once under whisper's remat "none", phase 22), once in (a)'s forward, three
 times a rank and dtype in (b) (the forward, the loss's forward and its
 recompute), and once per layer and microbatch in (c) (phase 25).  Qwen3
 serving runs no kernel, as in the reference (prefill and decode attend
-through the cache); phase 7 checks that too.
+through the cache); phase 7 checks that too.  Phase 26 holds the dry-run
+(`launch.build_cell`'s step traced on meta shards) against one real run
+of the same step at the (1, 1) mesh: its K2/K3 calls must equal the
+launches (K2 twice per layer and microbatch of the training step), its
+peak bytes per device the card's `max_memory_allocated` within
+`DRYRUN_PEAK_RATIO`; then one production dry-run and `run_autotune` with
+its BO on the card and on the CPU, the traces held to each other.
 
 A failed check fails the run: the script exits non-zero and prints no
 result.  It needs a CUDA card and the rest of the checkout; without either
@@ -4146,6 +4162,224 @@ def phase_parallel(dev, report) -> dict:
     return out
 
 
+DRYRUN_ARCH = "qwen3-8b"
+DRYRUN_CELLS = {  # (a): cell -> (layers kept or None, (seq_len, global batch, kind), microbatches)
+    "train": (8, (4096, 2, "train"), 2),  # phase 12's cell
+    "decode": (None, (SERVE_MAX_LEN, SERVE_BATCH, "decode"), 1),  # phase 7's batch and cache
+}
+DRYRUN_PEAK_RATIO = (0.8, 1.25)  # predicted over measured peak bytes
+DRYRUN_PROD = ("qwen3-8b", "decode_32k", "single_pod")  # (b) and (c)
+DRYRUN_SUB_S = 600.0  # a dry-run or tuner subprocess that has not ended by then fails the phase
+
+
+def dryrun_cell(dev, name, mesh) -> dict:
+    """(a) for one cell: the dry-run of `build_cell`'s step at the (1, 1)
+    mesh beside one real run of the same ``step_fn`` on the card."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs as C
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.data.pipeline import make_batch, shard_batch
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.ssd.kernel import ssd_diag_cuda
+    from repro_torch.launch.build import build_cell
+    from repro_torch.models.model import Model
+    from repro_torch.parallel.spmd import distribute_tree
+    from repro_torch.runtime.steps import init_train_state
+
+    layers, (t, b, kind), mb = DRYRUN_CELLS[name]
+    spec = C.get(DRYRUN_ARCH)
+    if layers is not None:
+        spec = dataclasses.replace(spec, model=spec.model.replace(num_layers=layers))
+    ex = spec.exec.replace(num_microbatches=mb)
+    cell = ShapeCell(f"chip_{name}", t, b, kind)
+    built = build_cell(spec, cell, mesh, exec_override=ex)
+    compiled = built.lower(mesh)
+    mem = compiled.memory_analysis()
+    predicted = {"peak_bytes": mem.peak_bytes, "flops": compiled.cost.flops,
+                 "flash_attention": compiled.kernel_calls.get("flash_attention", 0),
+                 "ssd_diag": compiled.kernel_calls.get("ssd_diag", 0),
+                 "trace_s": compiled.seconds, "replicated_at": compiled.replicated}
+
+    model = Model(spec.model, device=dev, seed=0)
+    if kind == "train":
+        args = (distribute_tree(init_train_state(model, ex), built.in_shardings[0], mesh),
+                shard_batch(make_batch(spec.model, b, t, seed=0), dev, built.in_shardings[1],
+                            mesh))
+    else:
+        params_sh, cache_sh, tokens_sh, _ = built.in_shardings
+        cache = {k: torch.zeros(s.shape, dtype=s.dtype, device=dev)
+                 for k, s in model.cache_specs(b, t).items()}
+        tokens = make_batch(spec.model, b, 1, seed=0)["tokens"]
+        args = (distribute_tree(model.params_tree(), params_sh, mesh),
+                distribute_tree(cache, cache_sh, mesh),
+                shard_batch({"tokens": tokens}, dev, {"tokens": tokens_sh}, mesh)["tokens"],
+                t - 1)
+    del model
+    reset_flash_counts(flash_attention_cuda)
+    ssd_diag_cuda.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    out = built.step_fn(*args)
+    ev[1].record()
+    torch.cuda.synchronize()
+    measured = {"peak_bytes": int(torch.cuda.max_memory_allocated()),
+                "flash_attention": flash_attention_cuda.launches,
+                "ssd_diag": ssd_diag_cuda.launches, "step_ms": ev[0].elapsed_time(ev[1])}
+    finite = all(bool(torch.isfinite(v).all()) for v in (
+        out[1].values() if kind == "train" else [out[0].to_local()]))
+    del out, args
+    return {"cell": [t, b, kind], "layers": layers or spec.model.num_layers,
+            "microbatches": mb, "predicted": predicted, "measured": measured,
+            "peak_ratio": predicted["peak_bytes"] / measured["peak_bytes"], "finite": finite}
+
+
+def sub_env() -> dict:
+    import os
+
+    return {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+                                if p])}
+
+
+def phase_dryrun(dev, report) -> dict:
+    """Phase 26: the dry-run, the step cost analysis and the tuner.  (a) the
+    dry-run's peak bytes, flops and kernel calls for two cells the card runs
+    whole, at the (1, 1) mesh (a gloo group of one), beside one real run of
+    the same step on the card: the kernel counts must equal the launches and
+    the peaks agree within `DRYRUN_PEAK_RATIO`; (b) one production dry-run
+    (`DRYRUN_PROD` on 256 ranks of a fake world, in a subprocess); (c)
+    `run_autotune` on that cell, its BO on the card and on the CPU (two
+    subprocesses), the traces held to each other under the tie-aware
+    comparator.  (b) and (c) run while (a) does.  Returns K2's launches on
+    (a)'s training step."""
+    import importlib
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.search_space import Configuration, SearchSpace
+    from repro_torch.launch.autotune import HBM_PER_CHIP, variant_space
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.testing import compare_traces, port_ei_at
+
+    arch, cell, mesh_kind = DRYRUN_PROD
+    print(f"phase 26: the dry-run and the tuner: (a) {DRYRUN_ARCH} cells at the (1, 1) mesh "
+          f"against the card, (b) {arch} x {cell} x {mesh_kind}, (c) run_autotune on it")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    subs = {}
+    t_sub = time.perf_counter()
+    for key, cmd in (
+        ("dryrun", ["repro_torch.launch.dryrun", "--arch", arch, "--cell", cell, "--mesh",
+                    mesh_kind, "--out", str(tmp / "dryrun")]),
+        ("tune_card", ["repro_torch.launch.autotune", "--arch", arch, "--cell", cell,
+                       "--out", str(tmp / "tune_card.json")]),
+        ("tune_cpu", ["repro_torch.launch.autotune", "--arch", arch, "--cell", cell,
+                      "--device", "cpu", "--out", str(tmp / "tune_cpu.json")]),
+    ):
+        log = open(tmp / f"{key}.log", "w")
+        subs[key] = (subprocess.Popen([sys.executable, "-m", *cmd], stdout=log,
+                                      stderr=subprocess.STDOUT, env=sub_env(), cwd=str(ROOT)),
+                     log)
+    out = {}
+    try:
+        # (a) ------------------------------------------------------------
+        # DTensor's sharding-propagation caches key on meshes by shape and
+        # names: drop any entry of phase 25's world, whose groups are gone
+        # (`torch.distributed.tensor.debug`, not a public API).
+        clear = getattr(importlib.import_module("torch.distributed.tensor.debug"),
+                        "_clear_sharding_prop_cache", None)
+        if clear is not None:
+            clear()
+        dist.init_process_group("gloo", store=dist.FileStore(str(tmp / "store"), 1), rank=0,
+                                world_size=1)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), dev)
+            for name in DRYRUN_CELLS:
+                t_part = time.perf_counter()
+                r = dryrun_cell(dev, name, mesh)
+                torch.cuda.empty_cache()
+                p, m = r["predicted"], r["measured"]
+                print(f"  (a) {DRYRUN_ARCH} {name} {r['cell']}, {r['layers']} layers, "
+                      f"{r['microbatches']} microbatches: dry-run peak {p['peak_bytes'] / 1e9:.3f} "
+                      f"GB per device, {p['flops']:.4e} flops, K2 calls {p['flash_attention']}, "
+                      f"K3 calls {p['ssd_diag']} (trace {p['trace_s']:.1f} s; replicated at "
+                      f"{p['replicated_at']}); on the card: max_memory_allocated "
+                      f"{m['peak_bytes'] / 1e9:.3f} GB, K2 launches {m['flash_attention']}, K3 "
+                      f"launches {m['ssd_diag']}, step {m['step_ms']:.1f} ms (CUDA events); "
+                      f"predicted/measured peak {r['peak_ratio']:.4f}; outputs finite "
+                      f"{r['finite']}; [{time.perf_counter() - t_part:.1f} s]")
+                out[name] = r
+                lo, hi = DRYRUN_PEAK_RATIO
+                if (p["flash_attention"], p["ssd_diag"]) != (m["flash_attention"], m["ssd_diag"]):
+                    raise AssertionError(f"(a) {name}: the dry-run's kernel calls differ from "
+                                         f"the card's launches: {p} vs {m}")
+                if not lo <= r["peak_ratio"] <= hi:
+                    raise AssertionError(f"(a) {name}: predicted/measured peak "
+                                         f"{r['peak_ratio']:.4f} outside [{lo}, {hi}]")
+                if not r["finite"]:
+                    raise AssertionError(f"(a) {name}: non-finite outputs")
+        finally:
+            dist.destroy_process_group()
+        # (b), (c) ---------------------------------------------------------
+        for key, (proc, log) in subs.items():
+            try:
+                code = proc.wait(timeout=max(1.0, DRYRUN_SUB_S - (time.perf_counter() - t_sub)))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                code = "timeout"
+            log.close()
+            if code != 0:
+                tail = (tmp / f"{key}.log").read_text()[-3000:]
+                raise AssertionError(f"({key}) exited with {code}:\n{tail}")
+        art = json.loads((tmp / "dryrun" / f"{arch}__{cell}__{mesh_kind}.json").read_text())
+        print(f"  (b) {arch} x {cell} x {mesh_kind}: status {art['status']}, wall "
+              f"{art.get('wall_s')} s; artifact: {json.dumps(art)}")
+        if art["status"] != "ok":
+            raise AssertionError(f"(b): the dry-run failed: {art}")
+        out["production"] = art
+        tunes = {k: json.loads((tmp / f"{k}.json").read_text()) for k in ("tune_card", "tune_cpu")}
+        space = variant_space(art["kind"])
+        enc = SearchSpace([Configuration(name=v.name, features=v.features(),
+                                         total_memory=float(HBM_PER_CHIP), num_nodes=1, meta=v)
+                           for v in space]).encoded()
+        traces = {k: types.SimpleNamespace(tried=r["tried_index"], costs=r["costs"],
+                                           stop_iteration=r["stop_iteration"],
+                                           phase_boundary=r["phase_boundary"])
+                  for k, r in tunes.items()}
+        for k, r in tunes.items():
+            print(f"  (c) run_autotune, BO on the {'card' if k == 'tune_card' else 'CPU'}: "
+                  f"priority group {r['priority_size']}/{len(space)} {r['priority']}, predicted "
+                  f"peaks (GiB) {r['predicted_peaks_gib']}; {r['trials']} trials "
+                  f"{r['tried']}, best {r['best']} at {r['best_cost_chip_s']!r} chip-s a step")
+        pools = [tunes["tune_cpu"]["priority"],
+                 [i for i in range(len(space)) if i not in tunes["tune_cpu"]["priority"]]]
+        pools = [q for q in pools if q]
+        cmp = compare_traces(traces["tune_cpu"], traces["tune_card"],
+                             port_ei_at(np.asarray(enc), pools, len(space), traces["tune_cpu"],
+                                        device="cpu"))
+        print(f"  (c) the card's trace against the CPU's: full match {cmp.full} "
+              f"{cmp.detail or ''}")
+        if tunes["tune_cpu"]["priority"] != tunes["tune_card"]["priority"]:
+            raise AssertionError("(c): the priority groups differ")
+        out["autotune"] = tunes
+    finally:
+        for proc, log in subs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    report["dryrun"] = out
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None, help="also write the report JSON here")
@@ -4206,6 +4440,7 @@ def main(argv=None) -> int:
     failed = []
     times, fa_times, ssd_times, rn, fleet, service, launches = None, None, None, None, None, None, {}
     parallel = None
+    dryrun = None
     families = {name: None for name, _ in FAMILY_PHASES.values()}
     trains = {name: None for name, _ in TRAIN_PHASES.values()}  # then by path: launches a step
     seq = {}  # phase 2's traces, which phase 14 holds the fleet against
@@ -4228,6 +4463,7 @@ def main(argv=None) -> int:
         *((FAMILY_PHASES[n][0], lambda n=n: phase_family(dev, report, n)) for n in FAMILY_PHASES),
         *((TRAIN_PHASES[n][0], lambda n=n: phase_train(dev, report, n)) for n in (21, 22, 23, 24)),
         ("parallel", lambda: phase_parallel(dev, report)),
+        ("dryrun", lambda: phase_dryrun(dev, report)),
     ):
         t_phase = time.perf_counter()
         try:
@@ -4258,6 +4494,8 @@ def main(argv=None) -> int:
             trains.update(out)
         elif name == "parallel":
             parallel = out
+        elif name == "dryrun":
+            dryrun = out
         elif name != "serve":
             launches[name] = out
     if args.out is not None:
@@ -4429,6 +4667,20 @@ def main(argv=None) -> int:
          "cuda_core"),
         ("parallel_pipeline", fa_times["tensor_core"], "tensor_core"),
     ))
+    # K2 on phase 26's path: (a)'s training step through `build_cell` at the
+    # (1, 1) mesh (phase 12's cell; its microbatches are the forward shape).
+    kernels.append({
+        "name": "flash_attention_wgmma",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_wgmma.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:113",
+        "path": "build_cell_train",
+        "shape": fa_times["tensor_core"]["shape"],
+        "launches": dryrun["train"]["measured"]["flash_attention"],
+        **{k: fa_times["tensor_core"][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms",
+            "bound_by", "library_ms", "library_device_ms")},
+    })
     kernels.extend({
         "name": "ssd_diag",
         "route": "cuda",

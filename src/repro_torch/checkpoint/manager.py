@@ -24,6 +24,9 @@ dtype in the manifest.
     `KeyError`; a shape or dtype that differs from the target's raises
     `ValueError`.  Target leaves that are not tensors come back as CPU
     tensors.
+  * A DTensor leaf (sharded training, ``train --mesh``) is written whole
+    (`full_tensor`, a collective every rank joins) and restored into its
+    shards.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 __all__ = ["CheckpointManager", "load_pytree", "save_pytree"]
 
@@ -64,17 +68,22 @@ def _leaf_filename(key: str) -> str:
     return key.replace("/", ".") + ".npy"
 
 
+def _whole(leaf: Any) -> Any:
+    """A DTensor leaf gathered whole (every rank calls this together)."""
+    return leaf.detach().full_tensor() if isinstance(leaf, DTensor) else leaf
+
+
 def _to_host(leaf: Any) -> Any:
     """A host copy of a leaf that later in-place updates cannot reach."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True)
+        return _whole(leaf).detach().to("cpu", copy=True)
     return np.array(leaf)
 
 
 def _as_numpy(leaf: Any) -> Tuple[np.ndarray, str]:
     """(array to write, logical dtype name) of a leaf."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = _whole(leaf).detach().cpu()
         if t.dtype == torch.bfloat16:  # npy can't store bf16: a 16-bit view
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
         arr = t.numpy()
@@ -132,6 +141,8 @@ def load_pytree(directory: str, target_tree: Any) -> Tuple[Any, Dict]:
         if value.dtype != ref.dtype:
             raise ValueError(f"leaf {key!r}: checkpoint dtype {value.dtype} != target {ref.dtype}")
         with torch.no_grad():
+            if isinstance(ref, DTensor):
+                value = distribute_tensor(value.to(ref.device), ref.device_mesh, ref.placements)
             ref.copy_(value)
         return ref
 

@@ -5,18 +5,19 @@ the reference draws them, so both packages see the same tokens.  The
 reference casts its float stubs (``patches``, ``frames``) to the compute
 dtype in numpy, which needs `ml_dtypes` for bfloat16; here they stay
 float32 (the same draws) and a caller casts them in torch.  `shard_batch`
-places a host batch on the model's device; the reference's places it with
-the step's mesh shardings, which come with its `build_cell` (ROADMAP Queue
-1 item 17c).
+places a host batch on the model's device, or, given the step's batch
+shardings (`launch.build.BuiltCell.in_shardings`, placements over a mesh),
+as DTensors over that mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import distribute_tensor
 
 from repro_torch.models.config import ModelConfig
 
@@ -66,6 +67,15 @@ def make_batch(cfg: ModelConfig, batch: int, seq_len: int, *, seed: int = 0,
     return out
 
 
-def shard_batch(batch: Dict[str, Any], device: Any) -> Dict[str, torch.Tensor]:
-    """Place a host batch on ``device``, each array keeping its dtype."""
-    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+def shard_batch(batch: Dict[str, Any], device: Any,
+                shardings: Optional[Dict[str, Any]] = None,
+                mesh: Any = None) -> Dict[str, torch.Tensor]:
+    """Place a host batch on ``device``, each array keeping its dtype; an
+    array named in ``shardings`` becomes a DTensor of those placements over
+    ``mesh`` (every rank holds the whole host batch, as each draws it from
+    the same seed, and keeps its shard)."""
+    out = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    if shardings is None:
+        return out
+    return {k: distribute_tensor(v, mesh, tuple(shardings[k])) if k in shardings else v
+            for k, v in out.items()}

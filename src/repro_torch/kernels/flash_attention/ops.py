@@ -15,6 +15,12 @@ Port of `repro/kernels/flash_attention/ops.py`.
     terms, about 16 bits), and so does the plain version.
   * The backward is autograd through `ref.attention_ref`, as the
     reference's custom VJP is the oracle's VJP.
+  * A meta tensor in a step traced for its costs (a `kernels.META_WATCHERS`
+    listener) gets the kernel's output from its shape function
+    (`kernels.meta_call`), with the flops of the
+    oracle's two products over the full T x S block, as the reference's
+    cost analysis counts its oracle.  DTensor inputs run the op on their
+    local shards (`parallel.spmd.sharded_call`).
 
 The plain version takes its tiles from `kernel.tiles` (128 x 128 on the
 tensor-core route, 64 x 64 on the CUDA-core one) unless ``block_q`` and
@@ -28,7 +34,10 @@ import math
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch import kernels
+from repro_torch.kernels import meta_call
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda, tiles
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -94,6 +103,11 @@ def _forward(q, k, v, causal, sm_scale):
     if q.device.type == "cuda":
         return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
                                     causal=causal, sm_scale=sm_scale)
+    if q.device.type == "meta" and kernels.META_WATCHERS:  # a step traced for its costs
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        b, t, h, d = q.shape
+        flops = 2.0 * b * h * t * k.shape[1] * (d + v.shape[-1])
+        return meta_call("flash_attention", torch.empty_like(q), flops)
     if q.device.type != "cpu":
         raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
     return flash_attention_plain(q, k, v, causal=causal, sm_scale=sm_scale)
@@ -124,4 +138,9 @@ def flash_attention(
     sm_scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Attention forward (B,T,H,D) in q's dtype; differentiable in q, k, v."""
+    if isinstance(q, DTensor):
+        from repro_torch.parallel.spmd import sharded_call  # local: parallel imports the models
+
+        return sharded_call("attention", lambda *a: _FlashAttention.apply(*a, causal, sm_scale),
+                            q, k, v)
     return _FlashAttention.apply(q, k, v, causal, sm_scale)

@@ -16,6 +16,11 @@ Port of `repro/kernels/ssd/ops.py`, with its (B, NC, Q, H, ·) layout.
     above it, times x.
   * The backward is autograd through `ref.ssd_diag_ref`, as the
     reference's custom VJP is the oracle's.
+  * A meta tensor in a step traced for its costs (a `kernels.META_WATCHERS`
+    listener) gets the kernel's output and scratch from its shape function
+    (`kernels.meta_call`), with the
+    flops of the oracle's two products; DTensor inputs run the op on their
+    local shards (`parallel.spmd.sharded_call`).
 
 The kernel is built for 64-row tiles (`kernel.BLOCK`) and computes the
 products on the tensor cores, each f32 operand as two TF32 terms; the plain
@@ -27,7 +32,10 @@ not depend on them beyond float32 rounding.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch import kernels
+from repro_torch.kernels import meta_call
 from repro_torch.kernels.ssd.kernel import BLOCK, ssd_diag_cuda
 from repro_torch.kernels.ssd.ref import heads, ssd_diag_ref
 
@@ -74,14 +82,21 @@ _BACKWARD_RANGE = "ssd_diag.backward"
 
 
 def _forward(x, dt, lA, B_, C_):
-    if x.device.type == "cuda":
+    if x.device.type == "cuda" or (x.device.type == "meta" and kernels.META_WATCHERS):
         b, nc = x.shape[:2]
 
         def flat(a):
             return a.to(torch.float32).reshape((b * nc,) + a.shape[2:])
 
-        y = ssd_diag_cuda(flat(x).contiguous(), flat(dt).contiguous(), flat(lA).contiguous(),
-                          flat(B_), flat(C_))
+        args = (flat(x).contiguous(), flat(dt).contiguous(), flat(lA).contiguous(),
+                flat(B_), flat(C_))
+        if x.device.type == "cuda":
+            y = ssd_diag_cuda(*args)
+        else:  # the launch's output and prefix-sum scratch
+            y, _ = torch.empty_like(args[0]), torch.empty_like(args[1])
+            q, h, p = x.shape[2:]
+            flops = 2.0 * b * nc * h * q * q * (B_.shape[-1] + p)
+            y = meta_call("ssd_diag", y, flops)
         return y.reshape(x.shape)
     if x.device.type != "cpu":
         raise ValueError(f"ssd_diag_chunk runs on cuda or cpu, got {x.device}")
@@ -110,4 +125,8 @@ def ssd_diag_chunk(
     C_: torch.Tensor,  # (B, NC, Q, G, N)
 ) -> torch.Tensor:
     """The intra-chunk term (B,NC,Q,H,P) in float32; differentiable in every input."""
+    if isinstance(x, DTensor):
+        from repro_torch.parallel.spmd import sharded_call  # local: parallel imports the models
+
+        return sharded_call("ssd", _SSDDiag.apply, x, dt, lA, B_, C_)
     return _SSDDiag.apply(x, dt, lA, B_, C_)

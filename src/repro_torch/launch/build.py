@@ -1,21 +1,96 @@
-"""Sharding rules for one (arch × cell × mesh) (port of the rule part of
-`repro/launch/build.py`).
+"""Assemble (step fn, abstract inputs, shardings) for any (arch × cell × mesh)
+(port of `repro/launch/build.py`).
 
-The reference's `build_cell` assembles (step fn, abstract inputs,
-shardings) for the dry-run, the tuner and sharded training; it and
-`BuiltCell` come with ROADMAP Queue 1 item 17c.  `rules_for` is here now:
-the expert-parallel MoE runs under the rules it gives.
+This is the single place where model specs, shape cells, sharding rules and
+step factories meet; the dry-run, the tuner and sharded training
+(``train --mesh``) all call `build_cell`.
+
+The reference's abstract inputs are `jax.ShapeDtypeStruct`s, and
+``lower(mesh).compile()`` hands the step to XLA's SPMD partitioner.  Here
+each abstract input is a `DTensor` of the placements its resolved spec
+gives (`parallel.sharding.named_sharding_tree`), its local shard a tensor
+on the ``meta`` device (`parallel.spmd.abstract_tree`): a kimi-k2 state of
+1.04 T parameters is built without allocating a byte.  `BuiltCell.lower`
+runs the step once on them as rank 0 of the mesh under a
+`launch.hlo_analysis.StepCounter`, which stands in for the compiled
+program's ``memory_analysis()`` and for the cost analysis of its HLO.
+
+The port trains on per-layer tensors (`Model.params_tree`), while the
+specs are stacked: each layer's tensor takes its stack's spec without the
+layer axis (`train_state_specs(per_layer=True)`); Adafactor's state stays
+stacked, as the port holds it.  The step runs under the activation
+constraints (`activation_sharding`) and `parallel.spmd.spmd_region`.
+
+The trace takes the route of the device its mesh describes: on a mesh of
+the card, a config whose attention is ``"auto"`` is traced with
+``"pallas"`` where the cell's sequence is a multiple of 128, as
+`models.layers._use_flash` routes it on the card, so that the flash and
+SSD kernels give their outputs through their shape functions.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+import time
+from typing import Any, Callable, Dict, Optional, Tuple
 
-from repro_torch.configs import ArchSpec, ShapeCell
+from repro_torch.configs import ArchSpec, ShapeCell, input_specs
+from repro_torch.configs.base import ExecConfig
+from repro_torch.launch.hlo_analysis import HloCost, StepMemory, analyze_step
 from repro_torch.launch.mesh import data_axes, model_axis
-from repro_torch.parallel.sharding import ShardingRules, default_rules
+from repro_torch.models.model import Model
+from repro_torch.models.spec import tree_map
+from repro_torch.parallel import spmd
+from repro_torch.parallel.constraints import activation_sharding
+from repro_torch.parallel.sharding import (PartitionSpec, ShardingRules, default_rules,
+                                           mesh_axis_size, named_sharding_tree, placements)
+from repro_torch.runtime.steps import make_serve_steps, make_train_step, train_state_specs
 
-__all__ = ["rules_for"]
+__all__ = ["BuiltCell", "Compiled", "build_cell", "rules_for"]
+
+
+@dataclasses.dataclass
+class Compiled:
+    """One traced step (the counterpart of XLA's compiled executable):
+    `memory_analysis` and `cost_analysis` of this rank, the kernels' calls
+    by name, the ops run replicated for want of a sharding strategy (op →
+    bytes gathered) and the trace's wall time."""
+
+    memory: StepMemory
+    cost: HloCost
+    kernel_calls: Dict[str, int]
+    replicated: Dict[str, float]
+    seconds: float
+
+    def compile(self) -> "Compiled":
+        """The trace is the compile: returns itself."""
+        return self
+
+    def memory_analysis(self) -> StepMemory:
+        return self.memory
+
+    def cost_analysis(self) -> HloCost:
+        return self.cost
+
+
+@dataclasses.dataclass
+class BuiltCell:
+    """Everything needed to trace/run one (arch × cell × mesh)."""
+
+    step_fn: Callable
+    abstract_args: Tuple[Any, ...]  # DTensors on meta shards, step_fn(*args)
+    in_shardings: Tuple[Any, ...]  # placements trees (None: a host value)
+    out_shardings: Any
+    donate_argnums: Tuple[int, ...]
+    kind: str
+
+    def lower(self, mesh=None) -> Compiled:
+        """Run the step once on the abstract inputs, as rank 0 of their mesh,
+        counting its ops and memory (`hlo_analysis.analyze_step`)."""
+        spmd.REPLICATED.clear()
+        t0 = time.time()
+        _, cost, mem, calls = analyze_step(self.step_fn, *self.abstract_args)
+        return Compiled(mem, cost, dict(calls), dict(spmd.REPLICATED), time.time() - t0)
 
 
 def rules_for(spec: ArchSpec, cell: ShapeCell, mesh, *,
@@ -38,3 +113,128 @@ def rules_for(spec: ArchSpec, cell: ShapeCell, mesh, *,
     if overrides:
         rules = rules.override(**overrides)
     return rules
+
+
+def _batch_pspec_tree(batch_specs: Dict[str, Any], rules: ShardingRules, mesh):
+    """Activation inputs shard on the batch dim only."""
+    batch_axes = rules.get("batch")
+
+    def pspec(leaf) -> PartitionSpec:
+        entry = batch_axes
+        if entry is None:
+            return PartitionSpec()
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        size = 1
+        kept = []
+        for a in axes:
+            asize = mesh_axis_size(mesh, a)
+            if leaf.shape and leaf.shape[0] % (size * asize) == 0:
+                kept.append(a)
+                size *= asize
+            else:
+                break
+        if not kept:
+            return PartitionSpec()
+        first = kept[0] if len(kept) == 1 else tuple(kept)
+        return PartitionSpec(*([first] + [None] * (len(leaf.shape) - 1)))
+
+    return tree_map(pspec, batch_specs)
+
+
+def _batch_shardings(batch_specs: Dict[str, Any], rules: ShardingRules, mesh) -> Dict[str, Any]:
+    """The placements of each batch input (`_batch_pspec_tree` over ``mesh``)."""
+    return {k: placements(ps, mesh, k)
+            for k, ps in _batch_pspec_tree(batch_specs, rules, mesh).items()}
+
+
+def _traced_config(spec: ArchSpec, cell: ShapeCell, mesh) -> ArchSpec:
+    """The config the trace runs: on a mesh of the card, attention "auto"
+    becomes "pallas" where the card takes the flash kernel (see the module
+    docstring)."""
+    cfg = spec.model
+    if mesh.device_type == "cuda" and cfg.attention_impl == "auto" and cell.seq_len % 128 == 0:
+        return dataclasses.replace(spec, model=cfg.replace(attention_impl="pallas"))
+    return spec
+
+
+def build_cell(
+    spec: ArchSpec,
+    cell: ShapeCell,
+    mesh,
+    *,
+    rules: Optional[ShardingRules] = None,
+    exec_override: Optional[ExecConfig] = None,
+) -> BuiltCell:
+    exec_cfg = exec_override or spec.exec
+    rules = rules or rules_for(spec, cell, mesh)
+    cfg = _traced_config(spec, cell, mesh).model
+    model = Model(cfg, device="meta")  # its steps take their parameters as arguments
+    specs = input_specs(cfg, cell)
+
+    def constrained(fn):
+        """Run the step under the activation-sharding context."""
+
+        def wrapped(*args):
+            with activation_sharding(rules, mesh), spmd.spmd_region():
+                return fn(*args)
+
+        return wrapped
+
+    def replicated_metrics(fn):
+        """The training step with its metrics reduced to replicated scalars
+        (plain tensors, the same on every rank)."""
+
+        def wrapped(state, batch):
+            state, metrics = fn(state, batch)
+            return state, {k: spmd.replicated(v) for k, v in metrics.items()}
+
+        return wrapped
+
+    def abstract(specs_tree, shardings):
+        return spmd.abstract_tree(specs_tree, shardings, mesh)
+
+    if cell.kind == "train":
+        step = make_train_step(model, exec_cfg)
+        state_specs = train_state_specs(model, exec_cfg, per_layer=True)
+        state_sh = named_sharding_tree(state_specs, rules, mesh)
+        batch_sh = _batch_shardings(specs["batch"], rules, mesh)
+        return BuiltCell(
+            step_fn=replicated_metrics(constrained(step)),
+            abstract_args=(abstract(state_specs, state_sh), abstract(specs["batch"], batch_sh)),
+            in_shardings=(state_sh, batch_sh),
+            # state keeps its shardings; metrics are replicated scalars
+            out_shardings=(state_sh, None),
+            donate_argnums=(0,),
+            kind="train",
+        )
+
+    prefill_step, decode_step = make_serve_steps(model)
+    param_specs = model.param_specs(stacked=False)
+    params_sh = named_sharding_tree(param_specs, rules, mesh)
+    abstract_params = abstract(param_specs, params_sh)
+    cache_specs = model.cache_specs(cell.global_batch, cell.seq_len)
+    cache_sh = named_sharding_tree(cache_specs, rules, mesh)
+
+    if cell.kind == "prefill":
+        batch_sh = _batch_shardings(specs["batch"], rules, mesh)
+        return BuiltCell(
+            step_fn=constrained(prefill_step),
+            abstract_args=(abstract_params, abstract(specs["batch"], batch_sh),
+                           abstract(cache_specs, cache_sh)),
+            in_shardings=(params_sh, batch_sh, cache_sh),
+            out_shardings=(None, cache_sh),
+            donate_argnums=(2,),
+            kind="prefill",
+        )
+
+    # decode: one new token at the cache's last position
+    tokens_sh = _batch_shardings({"tokens": specs["tokens"]}, rules, mesh)["tokens"]
+    return BuiltCell(
+        step_fn=constrained(decode_step),
+        abstract_args=(abstract_params, abstract(cache_specs, cache_sh),
+                       abstract({"t": specs["tokens"]}, {"t": tokens_sh})["t"], cell.seq_len - 1),
+        in_shardings=(params_sh, cache_sh, tokens_sh, None),
+        out_shardings=(None, cache_sh),
+        donate_argnums=(1,),
+        kind="decode",
+    )

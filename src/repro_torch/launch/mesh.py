@@ -11,37 +11,77 @@ Multi-pod:   (2, 16, 16)     axes ("pod", "data", "model") — 512 ranks
 
 The "pod" axis composes with "data" for gradient reduction (batch is
 sharded over ("pod", "data")); "model" carries tensor/expert parallelism.
-The production meshes need 256 or 512 ranks: the CPU tests build them in
-one process over the fake process group of `torch.testing._internal`
-(not a public API).
+A process group with fewer ranks than a mesh needs raises, naming both
+counts.  The production meshes need 256 or 512 ranks: a step is traced on
+them as rank 0 of a fake world (`fake_world`, over the fake process group
+of `torch.testing._internal`, not a public API), where collectives move no
+data, on a mesh that describes the card without touching it
+(``abstract=True``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from repro_torch.device import DeviceLike, resolve_device
 
-__all__ = ["data_axes", "make_mesh", "make_production_mesh", "mesh_context", "model_axis"]
+__all__ = ["data_axes", "fake_world", "make_mesh", "make_production_mesh", "mesh_context",
+           "model_axis"]
 
 
-def make_production_mesh(*, multi_pod: bool = False, device: DeviceLike = None) -> DeviceMesh:
+def make_production_mesh(*, multi_pod: bool = False, device: DeviceLike = None,
+                         abstract: bool = False) -> DeviceMesh:
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes, device)
+    return make_mesh(shape, axes, device, abstract=abstract)
 
 
-def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
-              device: DeviceLike = None) -> DeviceMesh:
+def _check_world(n: int, shape) -> None:
+    if not dist.is_initialized():
+        raise RuntimeError(f"mesh {tuple(shape)} needs a process group of {n} ranks; "
+                           f"none is initialized")
+    world = dist.get_world_size()
+    if world < n:
+        raise RuntimeError(f"mesh {tuple(shape)} needs {n} ranks; the process group has "
+                           f"{world}")
+
+
+def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], device: DeviceLike = None, *,
+              abstract: bool = False) -> DeviceMesh:
     """A mesh of ``shape`` named ``axes`` on ``device`` (``None``: the card,
-    which becomes the process's current CUDA device)."""
+    which becomes the process's current CUDA device) over the first
+    ``prod(shape)`` ranks of the default process group.  ``abstract=True``
+    describes ``device`` without touching it, for a step traced on the meta
+    device (`launch.build`)."""
+    n = math.prod(shape)
+    _check_world(n, shape)
+    if abstract:
+        kind = torch.device("cuda" if device is None else device).type
+        return DeviceMesh(kind, torch.arange(n).reshape(tuple(shape)),
+                          mesh_dim_names=tuple(axes))
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev.index or 0)
     return init_device_mesh(dev.type, tuple(shape), mesh_dim_names=tuple(axes))
+
+
+def fake_world(size: int) -> None:
+    """Make this process rank 0 of a fake world of ``size`` ranks, where
+    collectives return without moving data, unless a process group is open
+    already (which then must have ``size`` ranks or more).  For tracing a
+    step over a production mesh on one host; the fake group comes from
+    `torch.testing._internal.distributed.fake_pg` (not a public API)."""
+    if dist.is_initialized():
+        _check_world(size, (size,))
+        return
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=size)
 
 
 def mesh_context(mesh: DeviceMesh):

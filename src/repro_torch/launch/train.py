@@ -10,9 +10,13 @@ cpu``) and the deterministic synthetic data pipeline (with an encdec
 model's frames and a VLM's patches).  ``--smoke`` takes the reduced
 same-family config.  Every architecture of the registry trains, with its
 `ExecConfig`'s optimizer (the MoE configs: Adafactor over the reference's
-stacked tree).  The reference's ``--mesh`` runs the full config across a
-production mesh through its `build_cell`; until that is ported a mesh
-other than ``none`` raises (ROADMAP Queue 1 item 17c).
+stacked tree).  ``--mesh single_pod`` or ``multi_pod`` runs the step
+across the production mesh, as the reference does: the cell is built with
+`build_cell`, the state distributed with its input shardings and each
+batch placed with the batch's.  The caller opens a process group of 256
+or 512 ranks first (`torch.distributed.init_process_group` with an
+explicit address, world size and rank); with fewer the mesh raises,
+naming both counts.
 """
 
 from __future__ import annotations
@@ -22,8 +26,12 @@ from typing import Any, Dict, Optional, Sequence
 
 from repro_torch import configs as C
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs.shapes import ShapeCell
 from repro_torch.data.pipeline import SyntheticDataset, shard_batch
+from repro_torch.launch.build import build_cell
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.model import Model
+from repro_torch.parallel.spmd import distribute_tree
 from repro_torch.runtime.loop import PreemptionGuard, TrainLoop
 from repro_torch.runtime.steps import init_train_state, make_train_step
 
@@ -47,10 +55,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--mesh", choices=["none", "single_pod", "multi_pod"], default="none")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: sharded training needs build_cell, not ported yet "
-            f"(ROADMAP Queue 1 item 17c)")
 
     spec = C.smoke(args.arch) if args.smoke else C.get(args.arch)
     ex = spec.exec
@@ -61,12 +65,30 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     ex = ex.replace(total_steps=max(args.steps, 1))
 
     model = Model(spec.model, device=args.device, seed=args.seed)
+    state = init_train_state(model, ex)
+
+    if args.mesh != "none":
+        mesh = make_production_mesh(multi_pod=(args.mesh == "multi_pod"), device=args.device)
+        cell = ShapeCell("cli", args.seq_len, args.global_batch, "train")
+        built = build_cell(spec, cell, mesh, exec_override=ex)
+        step_fn = built.step_fn
+        state = distribute_tree(state, built.in_shardings[0], mesh)
+        batch_sh = built.in_shardings[1]
+
+        def place(batch):
+            return shard_batch(batch, model.device, batch_sh, mesh)
+    else:
+        step_fn = make_train_step(model, ex)
+
+        def place(batch):
+            return shard_batch(batch, model.device)
+
     ds = SyntheticDataset(spec.model, args.global_batch, args.seq_len, seed=args.seed)
     loop = TrainLoop(
-        train_step=make_train_step(model, ex),
+        train_step=step_fn,
         batch_at=ds.batch_at,
-        place_batch=lambda batch: shard_batch(batch, model.device),
-        state=init_train_state(model, ex),
+        place_batch=place,
+        state=state,
         checkpoints=CheckpointManager(args.ckpt_dir, keep_n=3),
         checkpoint_every=args.ckpt_every,
         log_every=args.log_every,

@@ -28,6 +28,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.config import ModelConfig, MoEConfig
@@ -553,21 +554,32 @@ class _CastGather(torch.autograd.Function):
     def forward(ctx, table, index, dtype):
         ctx.save_for_backward(index)
         ctx.shape, ctx.dtype = table.shape, table.dtype
-        return table[index].to(dtype)
+        return _rows(table, index).to(dtype)
 
     @staticmethod
     def backward(ctx, grad):
         (index,) = ctx.saved_tensors
-        out = torch.zeros(ctx.shape, dtype=grad.dtype, device=grad.device)
-        out.index_put_((index,), grad, accumulate=True)
+        if isinstance(grad, DTensor):  # the sum DTensor shards (vocab-sharded tables)
+            out = torch.ops.aten.embedding_dense_backward(grad, index, ctx.shape[0], -1, False)
+        else:
+            out = torch.zeros(ctx.shape, dtype=grad.dtype, device=grad.device)
+            out.index_put_((index,), grad, accumulate=True)
         return out.to(ctx.dtype), None, None
+
+
+def _rows(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``table[index]``; over a DTensor the embedding lookup, which DTensor
+    runs on a vocab-sharded table without gathering it."""
+    if isinstance(table, DTensor):
+        return F.embedding(index, table)
+    return table[index]
 
 
 def cast_gather(table: torch.Tensor, index: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Rows ``index`` of ``table`` in ``dtype``, as ``table.to(dtype)[index]``."""
     if table.requires_grad and torch.is_grad_enabled():
         return _CastGather.apply(table, index, dtype)
-    return table[index].to(dtype)
+    return _rows(table, index).to(dtype)
 
 
 def embed_apply(p: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:

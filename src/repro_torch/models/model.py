@@ -47,6 +47,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import hybrid as H
@@ -54,7 +55,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.spec import TensorSpec, count_params, init_tree, leaves, tree_map
+from repro_torch.models.spec import (TensorSpec, abstract_tree, count_params, init_tree, leaves,
+                                     tree_map)
+from repro_torch.parallel import spmd
 from repro_torch.parallel.remat import remat_wrap
 
 __all__ = ["STACKS", "Model", "active_params", "cache_specs", "total_params"]
@@ -193,16 +196,21 @@ class Model(nn.Module):
     ``params``: a tree like `params_tree` gives (e.g. from
     `convert.params_from_jax`), moved to ``device``; otherwise the spec's
     initializers draw them on ``device`` from a `torch.Generator` there,
-    seeded with ``seed``.  ``device=None`` is the card (`resolve_device`).
+    seeded with ``seed``.  ``device=None`` is the card (`resolve_device`);
+    on ``"meta"`` the parameters are shapes only, for a model whose steps
+    take their parameters as arguments (`launch.build`).  A batch's
+    DTensors stay where they are.
     """
 
     def __init__(self, cfg: ModelConfig, *, params: Optional[Tree] = None,
                  device: DeviceLike = None, seed: int = 0):
         super().__init__()
         specs = _unstacked_specs(cfg)
-        dev = resolve_device(device)
+        dev = torch.device("meta") if device == "meta" else resolve_device(device)
         self.cfg = cfg
-        if params is None:
+        if params is None and dev.type == "meta":
+            params = abstract_tree(specs)
+        elif params is None:
             params = init_tree(torch.Generator(device=dev).manual_seed(seed), specs, dev)
         else:
             want = {name: s for name, s in leaves(specs)}
@@ -229,8 +237,10 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.final_norm["scale"].device
 
-    def param_specs(self) -> Tree:
-        return _param_specs(self.cfg)
+    def param_specs(self, *, stacked: bool = True) -> Tree:
+        """The TensorSpec tree, stacked over layers as the reference's, or
+        with ``stacked=False`` as the module holds it (a list per stack)."""
+        return _param_specs(self.cfg, stacked=stacked)
 
     def total_params(self) -> int:
         return total_params(self.cfg)
@@ -260,9 +270,13 @@ class Model(nn.Module):
     # -- helpers ------------------------------------------------------------
 
     def _tokens(self, tokens) -> torch.Tensor:
+        if isinstance(tokens, DTensor):
+            return tokens.long()
         return torch.as_tensor(tokens, device=self.device).long()
 
     def _stub(self, batch: Dict[str, Any], key: str) -> torch.Tensor:
+        if isinstance(batch[key], DTensor):
+            return batch[key]
         return torch.as_tensor(batch[key], device=self.device)
 
     def _num_patches(self, batch: Dict[str, Any]) -> int:
@@ -334,14 +348,26 @@ class Model(nn.Module):
                 params: Optional[Tree] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Shifted cross-entropy (f32) + z-loss + aux, and its metrics."""
         logits, aux = self.forward(batch, params)
-        targets = self._tokens(batch["tokens"])[:, 1:]
-        logits = logits[:, :-1]
-        mask = torch.ones(targets.shape, dtype=torch.float32, device=logits.device)
-        if "loss_mask" in batch:
-            lm = torch.as_tensor(batch["loss_mask"], device=logits.device)
-            mask = mask * lm[:, 1:].to(torch.float32)
-        logz = torch.logsumexp(logits, dim=-1)
-        tgt_logit = torch.gather(logits, -1, targets[..., None])[..., 0]
+        tokens = self._tokens(batch["tokens"])
+        lm = batch.get("loss_mask")
+        if isinstance(logits, DTensor):
+            # Shift the targets, not the logits: a slice of sequence-sharded
+            # logits would gather them.  Position T-1 has no target (mask 0).
+            t = tokens.shape[1]
+            targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+            keep = (torch.arange(t, device=logits.device) < t - 1).to(torch.float32)
+            mask = torch.ones_like(tokens, dtype=torch.float32) * keep
+            if lm is not None:
+                mask = mask * torch.cat([lm[:, 1:], lm[:, :1]], dim=1).to(torch.float32)
+        else:
+            targets = tokens[:, 1:]
+            logits = logits[:, :-1]
+            mask = torch.ones(targets.shape, dtype=torch.float32, device=logits.device)
+            if lm is not None:
+                lm = torch.as_tensor(lm, device=logits.device)
+                mask = mask * lm[:, 1:].to(torch.float32)
+        logz = spmd.logsumexp_last(logits)  # over vocab shards without gathering them
+        tgt_logit = spmd.pick_last(logits, targets)
         nll = logz - tgt_logit
         denom = torch.clamp_min(mask.sum(), 1.0)
         ce = (nll * mask).sum() / denom

@@ -35,6 +35,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.ssd.ops import ssd_diag_chunk
 from repro_torch.models.config import ModelConfig
@@ -209,10 +210,17 @@ def ssd_chunked(
         else torch.zeros((b, h, n, p), dtype=_F32, device=x.device)
     )
     chunk_decay = torch.exp(total_lA)  # (B, nc, H)
-    prev_states = torch.empty((b, nc, h, n, p), dtype=_F32, device=x.device)
-    for c in range(nc):  # the state *entering* each chunk
-        prev_states[:, c] = state
-        state = chunk_decay[:, c, :, None, None] * state + chunk_states[:, c]
+    if isinstance(chunk_states, DTensor):  # no in-place writes into a plain buffer
+        entering = []
+        for c in range(nc):
+            entering.append(state)
+            state = chunk_decay[:, c, :, None, None] * state + chunk_states[:, c]
+        prev_states = torch.stack(entering, dim=1)
+    else:
+        prev_states = torch.empty((b, nc, h, n, p), dtype=_F32, device=x.device)
+        for c in range(nc):  # the state *entering* each chunk
+            prev_states[:, c] = state
+            state = chunk_decay[:, c, :, None, None] * state + chunk_states[:, c]
 
     # Off-diagonal: queries read the state entering their chunk.
     decay_from_start = torch.exp(cum_lA)  # (B,nc,Q,H) — includes own dt·A

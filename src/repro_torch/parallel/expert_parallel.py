@@ -37,6 +37,11 @@ experts), and `_Enter`'s backward sums the parts (x: over the model axis,
 then gathered over the batch axes; the router: over every axis; the
 experts: over the batch axes, then gathered over the model axis), so every
 rank ends with the full single-device gradients.
+
+Inside a step over DTensors (`launch.build`: sharded inputs and
+parameters) the same body runs on each rank's local shards, and the
+combine, the mean of ``aux`` and the gradients reduce as DTensors
+(`_moe_dtensor`).
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import moe_experts, moe_route
@@ -197,25 +202,91 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def moe_apply_shard_map(p: Dict[str, Any], cfg: ModelConfig,
-                        x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Drop-in replacement for the local moe dispatch (experts/router only —
-    the shared expert and the dense residual are added by the caller)."""
-    rules, mesh = current_context()
-    moe = cfg.moe
-    x = _local(x)
-    b, t, d = x.shape
-    e, k = moe.num_experts, moe.top_k
-    maxis = rules.get("experts")  # "model"
+def _kept_batch_axes(rules, mesh, b: int) -> Tuple[str, ...]:
+    """The batch axes the tokens shard over: a prefix whose product divides b."""
     names = mesh.mesh_dim_names
     batch_axes = [a for a in _axes_tuple(rules.get("batch"))
                   if a in names and b % mesh_axis_size(mesh, a) == 0]
-    # honor only a prefix whose product divides b
     keep, size = [], 1
     for a in batch_axes:
         if b % (size * mesh_axis_size(mesh, a)) == 0:
             keep.append(a)
             size *= mesh_axis_size(mesh, a)
+    return tuple(keep)
+
+
+def _local_moe(router, wg, wu, wo, cfg: ModelConfig, x_l: torch.Tensor, first: int,
+               e_local: int):
+    """The shard_map body on this rank's tokens and experts: the float32
+    partial combine (nb·t, d) and this shard's ``aux``."""
+    nb, t, d = x_l.shape
+    xf = x_l.reshape(nb * t, d)
+    r = moe_route(router, cfg.moe, xf)  # capacity from this shard's nb·t tokens
+    cap = r["capacity"]
+    flat_ids = r["expert_ids"].T.reshape(-1)  # (k*n,) k-major
+    mine = r["keep"] & (flat_ids >= first) & (flat_ids < first + e_local)
+    slot = torch.where(mine, r["slot"] - first * cap, torch.full_like(r["slot"], e_local * cap))
+    return moe_experts(wg, wu, wo, cfg, xf, r, mine, slot), r["aux"]
+
+
+def _moe_dtensor(p: Dict[str, Any], cfg: ModelConfig, x: DTensor, rules, mesh):
+    """The same body over DTensors (a step built by `launch.build`): x is laid
+    out over the kept batch axes and replicated over "model", the router
+    whole, the experts split over "model"; each rank runs the body on its
+    local shards, and the partial combine (Partial over "model") and the
+    batch mean of ``aux`` (Partial over the batch axes) reduce as DTensors.
+    The local views' gradients are partial sums over the axes whose ranks
+    hold other tokens or other experts (``grad_placements``), which
+    DTensor's backward reduces: the reference's ``shard_map`` transpose."""
+    names = tuple(mesh.mesh_dim_names)
+    mdim = names.index(rules.get("experts"))
+    bdims = [names.index(a) for a in _kept_batch_axes(rules, mesh, x.shape[0])]
+    shards = 1
+    for m in bdims:
+        shards *= mesh.size(m)
+
+    def layout(batch=None, model=None, partial=()):
+        pl = [Replicate()] * mesh.ndim
+        for m in bdims:
+            pl[m] = batch or Replicate()
+        if model is not None:
+            pl[mdim] = model
+        for m in partial:
+            pl[m] = Partial()
+        return tuple(pl)
+
+    def local(t, pl, grad_pl):
+        return t.redistribute(mesh, pl).to_local(grad_placements=grad_pl)
+
+    x_pl = layout(batch=Shard(0))
+    x_l = local(x, x_pl, layout(batch=Shard(0), partial=(mdim,)))
+    router = local(p["router"], layout(), layout(partial=bdims + [mdim]))
+    w_pl = layout(model=Shard(0))
+    wg, wu, wo = (local(p[n], w_pl, layout(model=Shard(0), partial=bdims))
+                  for n in ("wi_gate", "wi_up", "wo"))
+    e_local = cfg.moe.num_experts // mesh.size(mdim)
+    first = mesh.get_local_rank(mdim) * e_local
+    y, aux = _local_moe(router, wg, wu, wo, cfg, x_l, first, e_local)
+    y = DTensor.from_local(y.reshape(x_l.shape), mesh, layout(batch=Shard(0), model=Partial()),
+                           run_check=False)
+    y = y.redistribute(mesh, x_pl).to(cfg.cdtype)
+    aux = DTensor.from_local(aux / shards, mesh, layout(partial=bdims), run_check=False)
+    return y, aux.redistribute(mesh, layout())
+
+
+def moe_apply_shard_map(p: Dict[str, Any], cfg: ModelConfig,
+                        x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Drop-in replacement for the local moe dispatch (experts/router only —
+    the shared expert and the dense residual are added by the caller)."""
+    rules, mesh = current_context()
+    if isinstance(x, DTensor) and not all(isinstance(pl, Replicate) for pl in x.placements):
+        return _moe_dtensor(p, cfg, x, rules, mesh)
+    moe = cfg.moe
+    x = _local(x)
+    b, t, d = x.shape
+    e, k = moe.num_experts, moe.top_k
+    maxis = rules.get("experts")  # "model"
+    keep = _kept_batch_axes(rules, mesh, b)
     lay = _Layout(mesh, tuple(keep), maxis, b, e)
 
     x_l, router, wg, wu, wo = _Enter.apply(

@@ -6,6 +6,12 @@ and scalar metrics: the first microbatch's, then a running sum, then
 ``· 1/n`` cast back to the accumulator's dtype.  The reference scans over
 the slices; here a Python loop adds each slice's gradients in place.
 
+A batch of DTensors split over its batch dimension is sliced on each
+rank's shard: microbatch i takes the i-th slice of every rank's rows, so
+each rank keeps its share of every microbatch (the global slice would
+gather the batch).  The microbatches then hold other rows than on one
+device, and the mean over them is the same.
+
 The accumulator's dtype is ``accum_dtype`` when given, otherwise the
 gradients' own: when the step casts each microbatch's gradients to
 bfloat16 (``bf16_grad_reduce``), the sum runs in bfloat16, as the
@@ -18,6 +24,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.models.spec import flatten, unflatten
 
@@ -44,9 +51,20 @@ def accumulate_gradients(
         if x.shape[0] % n:
             raise ValueError(f"batch {x.shape[0]} ({k}) not divisible by microbatches {n}")
 
+    def part(x, i: int):
+        if isinstance(x, DTensor) and any(isinstance(p, Shard) and p.dim == 0
+                                          for p in x.placements):
+            local = x.to_local()
+            if local.shape[0] % n:
+                raise ValueError(f"local batch {local.shape[0]} not divisible by "
+                                 f"microbatches {n}")
+            m = local.shape[0] // n
+            return DTensor.from_local(local[i * m:(i + 1) * m], x.device_mesh, x.placements,
+                                      run_check=False)
+        return x[i * (x.shape[0] // n):(i + 1) * (x.shape[0] // n)]
+
     def micro(i: int) -> Dict[str, Any]:
-        return {k: x[i * (x.shape[0] // n):(i + 1) * (x.shape[0] // n)]
-                for k, x in batch.items()}
+        return {k: part(x, i) for k, x in batch.items()}
 
     def to_accum(g: torch.Tensor) -> torch.Tensor:
         return g.to(accum_dtype) if accum_dtype is not None else g

@@ -1,0 +1,411 @@
+"""Running a step on DTensors: the port's counterpart of the reference's
+``jax.jit(step, in_shardings=..., out_shardings=...)``.
+
+The reference hands XLA a step and the shardings of its inputs, and the SPMD
+partitioner writes the per-device program.  Here each input is a
+`DTensor` whose local shard lives on this rank, and DTensor's sharding
+propagation runs each op on the shards, inserting the collectives it needs.
+The pieces:
+
+  * `local_shape` and `abstract_tree`: the shard of a `TensorSpec` on this
+    rank, as a `DTensor` whose local tensor is on the ``meta`` device (shape
+    and dtype, no allocation), so a step over a 1-trillion-parameter model
+    can run for its shapes, costs and memory (`launch.build`);
+  * `distribute_tree`: real tensors distributed with a placements tree;
+  * `spmd_region`: what a step runs under: plain tensors made inside the
+    step (positions, masks, constants) count as replicated, and an op for
+    which DTensor has no sharding strategy runs on gathered (replicated)
+    inputs, each such site recorded with the bytes gathered (`REPLICATED`);
+  * `gathered`: a parameter tree whose DTensors are gathered over the data
+    axes (their FSDP shards) each time the model reads one, as ZeRO-3
+    gathers a layer's weights for its use only; the gradient comes back
+    through the gather's backward as a reduce-scatter onto the shards;
+  * `logsumexp_last` and `pick_last`: the loss's two reductions over a
+    vocab-sharded last dimension without gathering the logits;
+  * `sharded_call`: a kernel's call on its local shards, the inputs laid out
+    over the dimensions the kernel may split (batch and heads), the output
+    wrapped back; the flash-attention and SSD ops take this route for
+    DTensor inputs.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+from collections import defaultdict
+from typing import Any, Callable, Dict, Iterator, List, Sequence, Tuple
+
+import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import implicit_replication
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten, tree_map_only
+
+__all__ = ["REPLICATED", "abstract_tree", "distribute_tree", "gathered", "local_shape",
+           "logsumexp_last", "pick_last", "replicated", "sharded_call", "spmd_region"]
+
+# Ops that ran replicated for want of a sharding strategy: op name → bytes
+# gathered to this rank (summed over calls).  `spmd_region` adds to it.
+REPLICATED: Dict[str, float] = defaultdict(float)
+
+
+def replicated(x: Any) -> Any:
+    """A DTensor gathered whole on every rank, as a plain tensor (partial
+    sums reduced); anything else as it is."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def local_shape(shape: Sequence[int], placements: Sequence[Any], mesh) -> Tuple[int, ...]:
+    """The shard of a tensor of ``shape`` on this rank.  The resolved specs
+    keep only mesh axes that divide their dimension (`resolve_pspec`), so
+    every shard has the same shape."""
+    out = list(shape)
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            n = mesh.size(i)
+            if out[p.dim] % n:
+                raise ValueError(f"dimension {p.dim} of {tuple(shape)} does not split {n} ways")
+            out[p.dim] //= n
+    return tuple(out)
+
+
+def _contiguous_stride(shape: Sequence[int]) -> Tuple[int, ...]:
+    stride, acc = [], 1
+    for d in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= max(d, 1)
+    return tuple(reversed(stride))
+
+
+def _abstract(spec_shape, dtype, placements, mesh) -> DTensor:
+    local = torch.empty(local_shape(spec_shape, placements, mesh), dtype=dtype, device="meta")
+    return DTensor.from_local(local, mesh, tuple(placements), run_check=False,
+                              shape=torch.Size(spec_shape), stride=_contiguous_stride(spec_shape))
+
+
+def _zip_map(fn: Callable, a: Any, b: Any) -> Any:
+    """``fn(leaf_a, leaf_b)`` over two trees of one structure (dicts, lists,
+    tuples, NamedTuples); ``b``'s leaves are placements tuples."""
+    if isinstance(a, dict):
+        return {k: _zip_map(fn, v, b[k]) for k, v in a.items()}
+    if isinstance(a, tuple) and hasattr(a, "_fields"):
+        return type(a)(*(_zip_map(fn, v, w) for v, w in zip(a, b)))
+    if isinstance(a, (list, tuple)):
+        return type(a)(_zip_map(fn, v, w) for v, w in zip(a, b))
+    return fn(a, b)
+
+
+def abstract_tree(specs: Any, shardings: Any, mesh) -> Any:
+    """Each `TensorSpec` of ``specs`` as a `DTensor` of its placements in
+    ``shardings`` over ``mesh``, its local shard on the ``meta`` device.
+    Tensors (e.g. `configs.input_specs`' meta stand-ins) take their shape
+    and dtype."""
+    def leaf(s, placements):
+        return _abstract(tuple(s.shape), s.dtype, placements, mesh)
+
+    return _zip_map(leaf, specs, shardings)
+
+
+def distribute_tree(tree: Any, shardings: Any, mesh) -> Any:
+    """Real tensors of ``tree`` as DTensors of the placements ``shardings``
+    over ``mesh`` (every rank holds the same values, as each drew them from
+    the same seed; rank 0's are the ones kept; on a mesh of one rank the
+    tensors themselves).  A leaf that needs gradients keeps needing them."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def leaf(t, placements):
+        t = torch.as_tensor(t)
+        if mesh.size() == 1:  # the whole tensor is the one shard: no copy
+            d = DTensor.from_local(t.detach(), mesh, tuple(placements), run_check=False)
+        else:
+            d = distribute_tensor(t.detach(), mesh, tuple(placements))
+        return d.requires_grad_(t.requires_grad)
+
+    return _zip_map(leaf, tree, shardings)
+
+
+# ---------------------------------------------------------------------------
+# FSDP: parameters gathered over the data axes where they are read
+# ---------------------------------------------------------------------------
+
+_DATA_AXES = ("pod", "data")
+
+
+def _gather_data_axes(x: DTensor) -> DTensor:
+    names = x.device_mesh.mesh_dim_names or ()
+    pl = [Replicate() if names[m] in _DATA_AXES and isinstance(p, Shard) else p
+          for m, p in enumerate(x.placements)]
+    return x if tuple(pl) == tuple(x.placements) else x.redistribute(x.device_mesh, pl)
+
+
+def _gathered(v: Any) -> Any:
+    if isinstance(v, dict):
+        return _GatheredDict(v)
+    if isinstance(v, list):
+        return _GatheredList(v)
+    if isinstance(v, DTensor):
+        return _gather_data_axes(v)
+    return v
+
+
+class _GatheredDict(dict):
+    """A parameter dict that gathers each DTensor it gives out (see `gathered`)."""
+
+    def __getitem__(self, key):
+        return _gathered(dict.__getitem__(self, key))
+
+    def get(self, key, default=None):
+        return self[key] if key in self else default
+
+    def items(self):
+        return [(k, self[k]) for k in self]
+
+    def values(self):
+        return [self[k] for k in self]
+
+
+class _GatheredList(list):
+    def __getitem__(self, i):
+        return _gathered(list.__getitem__(self, i))
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+
+def gathered(params: Any) -> Any:
+    """``params`` as the model reads it under FSDP: a DTensor leaf read from
+    it comes gathered over the data axes ("pod", "data"), its other shards
+    kept (tensor and expert parallelism over "model").  A tree without
+    DTensors is returned as it is."""
+    if not any(isinstance(t, DTensor) for t in tree_flatten(params)[0]):
+        return params
+    return _gathered(params)
+
+
+# ---------------------------------------------------------------------------
+# The step's region: implicit replication and the replicate-at-op fallback
+# ---------------------------------------------------------------------------
+
+
+def _propagation_failed(err: BaseException) -> bool:
+    """DTensor found no sharding for an op: no strategy registered, none for
+    these inputs (a view that cannot split a sharded dimension), or one whose
+    local view does not fit its shard (a view across a dimension merged
+    from sharded ones)."""
+    msg = str(err)
+    return ("sharding strategy" in msg or "Sharding propagation failed" in msg
+            or "is invalid for input of size" in msg)
+
+
+def _local_bytes(tree: Any) -> int:
+    return sum(a.to_local().numel() * a.element_size()
+               for a in tree_flatten(tree)[0] if isinstance(a, DTensor))
+
+
+class _ReplicateUnsupported(TorchDispatchMode):
+    """Runs an op that DTensor cannot shard on inputs replicated over more
+    and more mesh dimensions, last first (a view that cannot split the
+    "model" shards of a merged dimension runs once they are gathered), and
+    at last, for an op with no strategy at all, on whole inputs
+    (`full_tensor`) with replicated outputs.  Each gather is a collective
+    the step's counter sees; `REPLICATED` records the op and the bytes it
+    gathered to this rank.  An in-place op re-raises: its target cannot be
+    replicated."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        dts = [a for a in tree_flatten((args, kwargs))[0] if isinstance(a, DTensor)]
+        try:
+            return func(*args, **kwargs)
+        except (NotImplementedError, RuntimeError) as err:
+            if not dts or not _propagation_failed(err) or func._schema.is_mutable:
+                raise
+            # (no reference to ``err`` outlives this clause: its traceback
+            # holds the callers' frames, and their tensors, in a cycle)
+            no_strategy = "sharding strategy" in str(err)
+        mesh = dts[0].device_mesh
+        before = _local_bytes((args, kwargs))
+        for keep in range(mesh.ndim - 1, -1, -1):  # mesh dims [keep, ndim) replicated
+            def gather(a: DTensor) -> DTensor:
+                pl = [p if m < keep else Replicate() for m, p in enumerate(a.placements)]
+                return a.redistribute(a.device_mesh, pl)
+
+            new_args, new_kwargs = tree_map_only(DTensor, gather, (args, kwargs))
+            try:
+                out = func(*new_args, **new_kwargs)
+            except (NotImplementedError, RuntimeError) as err:
+                if not _propagation_failed(err):
+                    raise
+                continue
+            REPLICATED[str(func)] += _local_bytes((new_args, new_kwargs)) - before
+            return out
+        if not no_strategy:
+            return func(*args, **kwargs)  # raises DTensor's own error again
+        full_args, full_kwargs = tree_map_only(DTensor, lambda a: a.full_tensor(), (args, kwargs))
+        REPLICATED[str(func)] += sum(
+            a.numel() * a.element_size() for a in tree_flatten((full_args, full_kwargs))[0]
+            if isinstance(a, torch.Tensor)) - before
+        out = func(*full_args, **full_kwargs)
+        rep = [Replicate()] * mesh.ndim
+        return tree_map_only(torch.Tensor,
+                             lambda o: DTensor.from_local(o, mesh, rep, run_check=False), out)
+
+
+@contextlib.contextmanager
+def spmd_region() -> Iterator[None]:
+    """The context a step over DTensors runs in: plain tensors count as
+    replicated (`implicit_replication`), and the replicate-at-op fallback."""
+    with implicit_replication(), _ReplicateUnsupported():
+        yield
+
+
+# ---------------------------------------------------------------------------
+# Kernels on their local shards
+# ---------------------------------------------------------------------------
+
+
+def _shard_index(mesh, mesh_dims: Sequence[int]) -> int:
+    """This rank's index among the shards of a dimension split over
+    ``mesh_dims`` (major first, in mesh order, as DTensor lays them out)."""
+    coord = mesh.get_coordinate()
+    idx = 0
+    for m in mesh_dims:
+        idx = idx * mesh.size(m) + coord[m]
+    return idx
+
+
+def _layout(x: DTensor, keep: Dict[int, Sequence[int]]) -> List[Any]:
+    """Placements of ``x`` keeping ``Shard(d)`` on the mesh dims ``keep[d]``
+    and replicating every other mesh dim."""
+    out: List[Any] = [Replicate()] * x.device_mesh.ndim
+    for d, dims in keep.items():
+        for m in dims:
+            out[m] = Shard(d)
+    return out
+
+
+def _local(x: DTensor, placements: Sequence[Any]) -> torch.Tensor:
+    x = x.redistribute(x.device_mesh, tuple(placements))
+    return x.to_local(grad_placements=tuple(placements))
+
+
+def _split_dims(x: DTensor, d: int) -> List[int]:
+    return [m for m, p in enumerate(x.placements) if isinstance(p, Shard) and p.dim == d]
+
+
+def sharded_call(kind: str, fn: Callable, *args: torch.Tensor) -> torch.Tensor:
+    """``fn`` (a kernel op on plain tensors) on this rank's shards of DTensor
+    ``args``.  ``kind`` names the layout:
+
+      * ``"attention"``: ``fn(q, k, v)`` over (B, T, H, D) queries and (B, S,
+        KV, D) keys and values.  Batch shards stay; query heads are sharded
+        over the other mesh dims (or over those that shard them already, if
+        the heads do not split over all), when each shard holds whole
+        groups of the GQA mapping (keys and values then shard with them) or
+        lies inside one group (each rank then takes its one KV head);
+        everything else, a sharded sequence included, is gathered.
+      * ``"ssd"``: ``fn(x, dt, lA, B, C)`` over (B, NC, Q, H, ·) inputs, B and
+        C per group (B, NC, Q, G, N).  Batch shards stay, heads as above
+        with groups in the place of KV heads.
+
+    The output takes the queries' (or x's) layout.  Differentiable: the
+    gradients come back through the same layouts."""
+    lead = args[0]
+    mesh = lead.device_mesh
+    batch = _split_dims(lead, 0)
+    hdim = 2 if kind == "attention" else 3
+    h = lead.shape[hdim]
+    free = [m for m in range(mesh.ndim) if m not in batch and mesh.size(m) > 1]
+    heads = free if h % math.prod(mesh.size(m) for m in free) == 0 else _split_dims(lead, hdim)
+    g = args[1].shape[2] if kind == "attention" else args[3].shape[3]
+    n = math.prod(mesh.size(m) for m in heads)
+    per = h // g  # query heads per KV head (or per group)
+    h_local = h // n if h % n == 0 else 0
+    if h_local and h_local % per == 0:
+        group_keep, take = heads, None  # whole groups per shard: shard them too
+    elif h_local and per % h_local == 0:
+        group_keep, take = [], (_shard_index(mesh, heads) * h_local) // per
+    else:
+        heads, group_keep, take = [], [], None
+    main = _layout(lead, {0: batch, hdim: heads})
+    grouped = _layout(lead, {0: batch, hdim: group_keep})
+
+    def pick(t: torch.Tensor) -> torch.Tensor:  # this rank's one KV head (or group)
+        return t if take is None else t.narrow(hdim, take, 1)
+
+    if kind == "attention":
+        q, k, v = args
+        out = fn(_local(q, main), pick(_local(k, grouped)), pick(_local(v, grouped)))
+    elif kind == "ssd":
+        x, dt, lA, B_, C_ = args
+        row = _layout(lead, {0: batch, 3: heads})
+        out = fn(_local(x, main), _local(dt, row), _local(lA, row),
+                 pick(_local(B_, grouped)), pick(_local(C_, grouped)))
+    else:
+        raise ValueError(f"unknown kind {kind!r}")
+    return DTensor.from_local(out, mesh, tuple(main), run_check=False)
+
+
+# ---------------------------------------------------------------------------
+# Reductions over a sharded last dimension (the loss over vocab shards)
+# ---------------------------------------------------------------------------
+
+
+def logsumexp_last(x: torch.Tensor) -> torch.Tensor:
+    """``torch.logsumexp(x, -1)``; over a DTensor as max + log Σ exp(x − max)
+    in ops DTensor shards (its max and sum over a sharded dimension are
+    all-reduces of the (…,) result), never gathering ``x``."""
+    if not isinstance(x, DTensor):
+        return torch.logsumexp(x, dim=-1)
+    m = x.detach().amax(dim=-1, keepdim=True)
+    return torch.log(torch.exp(x - m).sum(dim=-1)) + m[..., 0]
+
+
+def _out_placements(x: DTensor) -> Tuple[Any, ...]:
+    """``x``'s placements with its last dimension reduced away."""
+    last = x.ndim - 1
+    return tuple(p if isinstance(p, Shard) and p.dim < last else Replicate()
+                 for p in x.placements)
+
+
+class _PickLast(torch.autograd.Function):
+    """``x[..., i]`` at integer ``index`` (…,) of a DTensor, on its local
+    shard: where the last dimension is sharded, each rank picks the entries
+    in its slice (0 elsewhere), and an all-reduce over the slicing mesh dims
+    sums them."""
+
+    @staticmethod
+    def forward(ctx, x, index):
+        from torch.distributed import _functional_collectives as funcol
+
+        mesh, out_pl = x.device_mesh, _out_placements(x)
+        index = index.redistribute(mesh, out_pl).to_local().long()
+        local = x.to_local()
+        vdims = _split_dims(x, x.ndim - 1)
+        width = local.shape[-1]
+        shifted = index - _shard_index(mesh, vdims) * width
+        inside = (shifted >= 0) & (shifted < width)
+        safe = shifted.clamp(0, width - 1)
+        picked = local.gather(-1, safe[..., None])[..., 0] * inside
+        for m in vdims:
+            picked = funcol.all_reduce(picked, "sum", (mesh, m))
+        ctx.save_for_backward(safe, inside)
+        ctx.meta = (mesh, tuple(x.placements), out_pl, tuple(local.shape), local.dtype)
+        return DTensor.from_local(picked, mesh, out_pl, run_check=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        safe, inside = ctx.saved_tensors
+        mesh, x_pl, out_pl, shape, dtype = ctx.meta
+        g = g.redistribute(mesh, out_pl).to_local()
+        grad = torch.zeros(shape, dtype=dtype, device=g.device)
+        grad.scatter_(-1, safe[..., None], (g * inside).to(dtype)[..., None])
+        return DTensor.from_local(grad, mesh, x_pl, run_check=False), None
+
+
+def pick_last(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``torch.gather(x, -1, index[..., None])[..., 0]``; over a DTensor
+    without gathering ``x``."""
+    if isinstance(x, DTensor):  # (the gather's own backward makes a global-size zeros)
+        return _PickLast.apply(x, index)
+    return torch.gather(x, -1, index[..., None])[..., 0]

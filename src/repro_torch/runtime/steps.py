@@ -19,7 +19,10 @@ aux_loss, tokens (the microbatches' mean), grad_norm and lr, all tensors on
 the model's device: the step itself never waits for the card.
 
 The update is in place: the state's parameters are the model's tensors,
-and the returned state holds the same tensors with the new values.
+and the returned state holds the same tensors with the new values.  Over
+DTensors (`launch.build`) the model reads its parameters through
+`parallel.spmd.gathered`, each FSDP-sharded weight gathered where it is
+used and its gradient reduce-scattered back onto the shards.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from repro_torch.configs.base import ExecConfig
 from repro_torch.models.model import STACKS, Model
 from repro_torch.models.spec import TensorSpec, flatten, unflatten
 from repro_torch.optim import OptState, clip_by_global_norm, linear_warmup_cosine, make_optimizer
+from repro_torch.parallel import spmd
 from repro_torch.parallel.microbatch import accumulate_gradients
 
 __all__ = ["TrainState", "init_train_state", "make_grad_fn", "make_serve_steps",
@@ -57,7 +61,7 @@ def make_grad_fn(model: Model, exec_cfg: ExecConfig) -> Callable[[Any, Dict[str,
         with torch.enable_grad():
             for p in flat:
                 p.requires_grad_(True)
-            loss, metrics = model.loss_fn(mb, params=params)
+            loss, metrics = model.loss_fn(mb, params=spmd.gathered(params))
             grads = list(torch.autograd.grad(loss, flat))
         if exec_cfg.bf16_grad_reduce:
             for i, g in enumerate(grads):  # leaf by leaf: one float32 copy dropped at a time
@@ -110,25 +114,28 @@ def init_train_state(model: Model, exec_cfg: ExecConfig) -> TrainState:
     return {"params": params, "opt": optimizer.init(params)}
 
 
-def train_state_specs(model: Model, exec_cfg: ExecConfig) -> Any:
+def train_state_specs(model: Model, exec_cfg: ExecConfig, *, per_layer: bool = False) -> Any:
     """TensorSpec tree matching the reference's ``init_train_state`` (the
     parameters stacked over layers, as `Model.param_specs` gives them).
     Adafactor's state is allocated in this layout; the parameters and
-    AdamW's moments are its per-layer slices."""
+    AdamW's moments are its per-layer slices.  ``per_layer=True`` gives the
+    tree `init_train_state` holds: the parameters and AdamW's moments a list
+    per stack, each layer's spec its stack's without the layer axis."""
     optimizer = _optimizer(exec_cfg)
     pspecs = model.param_specs()
-    return {"params": pspecs,
-            "opt": OptState(step=TensorSpec((), torch.int32, ()),
-                            inner=optimizer.state_specs(pspecs))}
+    params = model.param_specs(stacked=False) if per_layer else pspecs
+    inner = optimizer.state_specs(params if exec_cfg.optimizer == "adamw" else pspecs)
+    return {"params": params,
+            "opt": OptState(step=TensorSpec((), torch.int32, ()), inner=inner)}
 
 
 def make_serve_steps(model: Model):
     """(prefill_step, decode_step) pair for the serving path."""
 
     def prefill_step(params, batch, cache):
-        return model.prefill(batch, cache, params=params)
+        return model.prefill(batch, cache, params=spmd.gathered(params))
 
     def decode_step(params, cache, tokens, index):
-        return model.decode_step(cache, tokens, index, params=params)
+        return model.decode_step(cache, tokens, index, params=spmd.gathered(params))
 
     return prefill_step, decode_step

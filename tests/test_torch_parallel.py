@@ -319,18 +319,24 @@ def test_forward_under_a_one_rank_mesh_is_bit_equal(arch, meshes, monkeypatch):
     assert len(calls) == (spec.model.num_layers if spec.model.family == "moe" else 0)
 
 
-def test_train_cli_mesh_still_refuses(tmp_path):
+def test_train_cli_mesh_still_refuses(tmp_path, monkeypatch):
+    """``--mesh`` runs only on a process group with the mesh's ranks: with
+    fewer (here 4 for the multi-pod mesh's 512) it raises, naming both
+    counts, and never carries on at a smaller mesh."""
     from repro_torch.launch import train
 
-    with pytest.raises(NotImplementedError, match="item 17c"):
+    monkeypatch.setattr(port_mesh.dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(port_mesh.dist, "get_world_size", lambda *a: 4)
+    with pytest.raises(RuntimeError, match=r"needs 512 ranks; the process group has 4"):
         train.main(["--arch", "qwen3-8b", "--smoke", "--mesh", "multi_pod", "--device", "cpu",
                     "--ckpt-dir", str(tmp_path)])
 
 
 def test_expert_parallel_reads_replicated_dtensors(meshes):
     """`moe_apply_shard_map` takes the full inputs as plain tensors or as
-    replicated DTensors (read with ``to_local()``); a sharded DTensor is
-    refused."""
+    replicated DTensors (read with ``to_local()``); a batch-sharded DTensor
+    (a step built by `launch.build`) takes the DTensor route over the
+    local shards, with the same values."""
     from repro_torch.models import layers as L
     from repro_torch.models.spec import init_tree
     from repro_torch.parallel.expert_parallel import moe_apply_shard_map
@@ -346,6 +352,9 @@ def test_expert_parallel_reads_replicated_dtensors(meshes):
         want = moe_apply_shard_map(p, cfg, x)
         got = moe_apply_shard_map({k: distribute_tensor(v, mesh, rep) for k, v in p.items()
                                    if k != "shared"}, cfg, distribute_tensor(x, mesh, rep))
-        with pytest.raises(ValueError, match="replicated"):
-            moe_apply_shard_map(p, cfg, distribute_tensor(x, mesh, [Shard(0), Replicate()]))
+        sharded = moe_apply_shard_map(
+            {k: distribute_tensor(v, mesh, rep) for k, v in p.items() if k != "shared"}, cfg,
+            distribute_tensor(x, mesh, [Shard(0), Replicate()]))
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(sharded[0].full_tensor(), want[0])
+    assert torch.equal(sharded[1].full_tensor(), want[1])

@@ -635,7 +635,7 @@ def test_train_cli_refusals(monkeypatch, tmp_path):
     from repro_torch.launch import train
 
     args = ["--arch", "mamba2-370m", "--smoke", "--steps", "1", "--ckpt-dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(RuntimeError, match="needs a process group of 256 ranks"):
         train.main(args + ["--mesh", "single_pod", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -75,17 +75,32 @@ def spawn(fn, world, tmp_path, *args):
     return out
 
 
+def clear_dtensor_caches():
+    """Drop DTensor's sharding-propagation caches: they key on meshes by
+    shape and names, so a mesh of an earlier world would answer for an
+    equal mesh of a new one, with its dead process groups
+    (`torch.distributed.tensor.debug`, not a public API)."""
+    from torch.distributed.tensor import debug
+
+    clear = getattr(debug, "_clear_sharding_prop_cache", None)
+    if clear is not None:
+        clear()
+
+
 @contextlib.contextmanager
 def fake_world(size: int):
     """This process as rank 0 of a fake world of ``size`` ranks (no peers;
-    collectives return without moving data)."""
+    collectives return without moving data), DTensor's caches cleared on
+    the way in and out."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
+    clear_dtensor_caches()
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=size)
     try:
         yield
     finally:
         dist.destroy_process_group()
+        clear_dtensor_caches()
 
 
 def numpy_tree(tree):
@@ -196,3 +211,51 @@ def pipeline_worker(rank, world, w, xs, mesh_shape, axes):
     (out ** 2).sum().backward()
     return {"out": out.detach().numpy(), "gw": w.grad.numpy(), "gx": xs.grad.numpy(),
             "stage": mesh.get_local_rank("pod")}
+
+
+def f32_smoke(C):
+    """Patch ``C.smoke`` (the port's registry) to compute in float32, as
+    the reference's sharded-step test configures its smoke model."""
+    smoke = C.smoke
+    C.smoke = lambda arch: smoke(arch).replace_model(compute_dtype="float32")
+
+
+def recorded_steps(step_fn, seen):
+    """``step_fn`` that appends each step's metrics (as floats) to ``seen``."""
+
+    def step(state, batch):
+        state, metrics = step_fn(state, batch)
+        seen.append({k: float(v) for k, v in metrics.items()})
+        return state, metrics
+
+    return step
+
+
+def train_mesh_worker(rank, world, argv, ckpt_root):
+    """``train.main(argv + ["--mesh", "single_pod"])`` on this rank, the
+    production mesh patched to (2, 2) over ("data", "model") (after checking
+    that the real one refuses a world of 4), and each step's metrics."""
+    from repro_torch import configs as C
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import train
+
+    f32_smoke(C)
+    try:
+        M.make_production_mesh(device="cpu")
+    except RuntimeError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("a world of 4 built the 256-rank mesh")
+    train.make_production_mesh = lambda multi_pod=False, device=None: M.make_mesh(
+        (2, 2), ("data", "model"), device)
+    seen = []
+    build_cell = train.build_cell
+
+    def recorded(*a, **kw):
+        built = build_cell(*a, **kw)
+        built.step_fn = recorded_steps(built.step_fn, seen)
+        return built
+
+    train.build_cell = recorded
+    train.main(list(argv) + ["--mesh", "single_pod", "--ckpt-dir", f"{ckpt_root}/rank{rank}"])
+    return {"metrics": seen, "refusal": refusal}
