@@ -212,7 +212,9 @@ of the same step at the (1, 1) mesh: its K2/K3 calls must equal the
 launches (K2 twice per layer and microbatch of the training step), its
 peak bytes per device the card's `max_memory_allocated` within
 `DRYRUN_PEAK_RATIO`; then one production dry-run and `run_autotune` with
-its BO on the card and on the CPU, the traces held to each other.
+its BO on the card and on the CPU, the traces held to each other, and the
+multi-pod training cell of `DRYRUN_MULTI`, which must end ok within
+`DRYRUN_MULTI_S`.
 
 A failed check fails the run: the script exits non-zero and prints no
 result.  It needs a CUDA card and the rest of the checkout; without either
@@ -4170,6 +4172,9 @@ DRYRUN_CELLS = {  # (a): cell -> (layers kept or None, (seq_len, global batch, k
 DRYRUN_PEAK_RATIO = (0.8, 1.25)  # predicted over measured peak bytes
 DRYRUN_PROD = ("qwen3-8b", "decode_32k", "single_pod")  # (b) and (c)
 DRYRUN_SUB_S = 600.0  # a dry-run or tuner subprocess that has not ended by then fails the phase
+# (d): 1064 s on a CPU when the multi-pod mesh was traced 3-D, not merged
+DRYRUN_MULTI = ("qwen3-8b", "train_4k", "multi_pod")
+DRYRUN_MULTI_S = 300.0  # (d) past this fails the phase
 
 
 def dryrun_cell(dev, name, mesh) -> dict:
@@ -4255,8 +4260,10 @@ def phase_dryrun(dev, report) -> dict:
     (`DRYRUN_PROD` on 256 ranks of a fake world, in a subprocess); (c)
     `run_autotune` on that cell, its BO on the card and on the CPU (two
     subprocesses), the traces held to each other under the tie-aware
-    comparator.  (b) and (c) run while (a) does.  Returns K2's launches on
-    (a)'s training step."""
+    comparator; (d) the multi-pod dry-run `DRYRUN_MULTI` (512 ranks, "pod"
+    and "data" merged where its specs allow), which must end ok within
+    `DRYRUN_MULTI_S`.  (b), (c) and (d) run while (a) does.  Returns K2's
+    launches on (a)'s training step."""
     import importlib
     import tempfile
 
@@ -4271,7 +4278,8 @@ def phase_dryrun(dev, report) -> dict:
 
     arch, cell, mesh_kind = DRYRUN_PROD
     print(f"phase 26: the dry-run and the tuner: (a) {DRYRUN_ARCH} cells at the (1, 1) mesh "
-          f"against the card, (b) {arch} x {cell} x {mesh_kind}, (c) run_autotune on it")
+          f"against the card, (b) {arch} x {cell} x {mesh_kind}, (c) run_autotune on it, "
+          f"(d) {' x '.join(DRYRUN_MULTI)}")
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
     subs = {}
     t_sub = time.perf_counter()
@@ -4282,6 +4290,8 @@ def phase_dryrun(dev, report) -> dict:
                        "--out", str(tmp / "tune_card.json")]),
         ("tune_cpu", ["repro_torch.launch.autotune", "--arch", arch, "--cell", cell,
                       "--device", "cpu", "--out", str(tmp / "tune_cpu.json")]),
+        ("multi_pod", ["repro_torch.launch.dryrun", "--arch", DRYRUN_MULTI[0], "--cell",
+                       DRYRUN_MULTI[1], "--mesh", DRYRUN_MULTI[2], "--out", str(tmp / "multi")]),
     ):
         log = open(tmp / f"{key}.log", "w")
         subs[key] = (subprocess.Popen([sys.executable, "-m", *cmd], stdout=log,
@@ -4327,10 +4337,11 @@ def phase_dryrun(dev, report) -> dict:
                     raise AssertionError(f"(a) {name}: non-finite outputs")
         finally:
             dist.destroy_process_group()
-        # (b), (c) ---------------------------------------------------------
+        # (b), (c), (d) ----------------------------------------------------
         for key, (proc, log) in subs.items():
+            limit = DRYRUN_MULTI_S if key == "multi_pod" else DRYRUN_SUB_S
             try:
-                code = proc.wait(timeout=max(1.0, DRYRUN_SUB_S - (time.perf_counter() - t_sub)))
+                code = proc.wait(timeout=max(1.0, limit - (time.perf_counter() - t_sub)))
             except subprocess.TimeoutExpired:
                 proc.kill()
                 proc.wait()
@@ -4370,6 +4381,18 @@ def phase_dryrun(dev, report) -> dict:
         if tunes["tune_cpu"]["priority"] != tunes["tune_card"]["priority"]:
             raise AssertionError("(c): the priority groups differ")
         out["autotune"] = tunes
+        multi = json.loads((tmp / "multi" / f"{'__'.join(DRYRUN_MULTI)}.json").read_text())
+        mem = multi.get("memory", {})
+        print(f"  (d) {' x '.join(DRYRUN_MULTI)}: status {multi['status']}, mesh_flattened "
+              f"{multi.get('mesh_flattened')}, peak {mem.get('peak_bytes_per_device')} B a device "
+              f"({mem.get('peak_bytes_per_device', 0) / 2**30:.2f} GiB, fits_80g "
+              f"{mem.get('fits_80g')}), wall {multi.get('wall_s')} s (trace "
+              f"{multi.get('trace_s')} s), flops {multi.get('hlo_cost', {}).get('flops_per_device')}, "
+              f"replicated at {multi.get('replicated_at')}")
+        if multi["status"] != "ok" or multi["wall_s"] > DRYRUN_MULTI_S:
+            raise AssertionError(f"(d): the multi-pod dry-run did not end ok within "
+                                 f"{DRYRUN_MULTI_S} s: {multi}")
+        out["multi_pod"] = multi
     finally:
         for proc, log in subs.values():
             if proc.poll() is None:

@@ -26,6 +26,15 @@ the card, a config whose attention is ``"auto"`` is traced with
 ``"pallas"`` where the cell's sequence is a multiple of 128, as
 `models.layers._use_flash` routes it on the card, so that the flash and
 SSD kernels give their outputs through their shape functions.
+
+On the multi-pod mesh a cell traces over `launch.mesh.flat_view`, "pod" and
+"data" merged into one dimension of 32, where every resolved spec of its
+inputs (parameters, optimizer state, batch, cache) names them together
+(`traced_mesh`): each tensor is laid out as on the 3-D mesh, and DTensor
+plans over two mesh dimensions instead of three.  A cell whose specs name
+one without the other stays on the 3-D mesh.  The rules and specs are the
+same either way; `BuiltCell.mesh_flattened` says which mesh the step runs
+on.
 """
 
 from __future__ import annotations
@@ -37,16 +46,17 @@ from typing import Any, Callable, Dict, Optional, Tuple
 from repro_torch.configs import ArchSpec, ShapeCell, input_specs
 from repro_torch.configs.base import ExecConfig
 from repro_torch.launch.hlo_analysis import HloCost, StepMemory, analyze_step
-from repro_torch.launch.mesh import data_axes, model_axis
+from repro_torch.launch.mesh import data_axes, flat_view, model_axis
 from repro_torch.models.model import Model
-from repro_torch.models.spec import tree_map
+from repro_torch.models.spec import flatten as tree_leaves, tree_map
 from repro_torch.parallel import spmd
 from repro_torch.parallel.constraints import activation_sharding
 from repro_torch.parallel.sharding import (PartitionSpec, ShardingRules, default_rules,
-                                           mesh_axis_size, named_sharding_tree, placements)
+                                           mesh_axis_size, named_sharding_tree, placements,
+                                           resolve_tree)
 from repro_torch.runtime.steps import make_serve_steps, make_train_step, train_state_specs
 
-__all__ = ["BuiltCell", "Compiled", "build_cell", "rules_for"]
+__all__ = ["BuiltCell", "Compiled", "build_cell", "rules_for", "traced_mesh"]
 
 
 @dataclasses.dataclass
@@ -83,6 +93,8 @@ class BuiltCell:
     out_shardings: Any
     donate_argnums: Tuple[int, ...]
     kind: str
+    mesh: Any = None  # the mesh the abstract inputs live on
+    mesh_flattened: bool = False  # ("pod", "data") merged (`launch.mesh.flat_view`)
 
     def lower(self, mesh=None) -> Compiled:
         """Run the step once on the abstract inputs, as rank 0 of their mesh,
@@ -157,6 +169,23 @@ def _traced_config(spec: ArchSpec, cell: ShapeCell, mesh) -> ArchSpec:
     return spec
 
 
+def traced_mesh(mesh, pspecs: Any, flatten: bool = True):
+    """(the mesh a step traces on, whether it merges "pod" and "data"): the
+    mesh's `flat_view` where it has both axes as dimensions of their own and
+    every `PartitionSpec` of ``pspecs`` (a tree) lays out on that view, so
+    names them together, in order; else ``mesh``."""
+    if not flatten:
+        return mesh, False
+    try:
+        flat = flat_view(mesh)
+        for ps in tree_leaves(pspecs):
+            if isinstance(ps, PartitionSpec):
+                placements(ps, flat)
+    except ValueError:
+        return mesh, False
+    return flat, True
+
+
 def build_cell(
     spec: ArchSpec,
     cell: ShapeCell,
@@ -164,12 +193,27 @@ def build_cell(
     *,
     rules: Optional[ShardingRules] = None,
     exec_override: Optional[ExecConfig] = None,
+    flatten: bool = True,
 ) -> BuiltCell:
+    """The cell's step and abstract inputs over ``mesh``, or over its
+    `flat_view` where the cell's specs allow it and ``flatten`` (see the
+    module docstring)."""
     exec_cfg = exec_override or spec.exec
     rules = rules or rules_for(spec, cell, mesh)
     cfg = _traced_config(spec, cell, mesh).model
     model = Model(cfg, device="meta")  # its steps take their parameters as arguments
     specs = input_specs(cfg, cell)
+    if cell.kind == "train":
+        held = train_state_specs(model, exec_cfg, per_layer=True)  # params and optimizer
+        batch = specs["batch"]
+    else:
+        held = {"params": model.param_specs(stacked=False),
+                "cache": model.cache_specs(cell.global_batch, cell.seq_len)}
+        batch = specs["batch"] if cell.kind == "prefill" else {"tokens": specs["tokens"]}
+    mesh, merged = traced_mesh(
+        mesh, (resolve_tree(held, rules, mesh), _batch_pspec_tree(batch, rules, mesh)), flatten)
+    held_sh = named_sharding_tree(held, rules, mesh)
+    batch_sh = _batch_shardings(batch, rules, mesh)
 
     def constrained(fn):
         """Run the step under the activation-sharding context."""
@@ -193,48 +237,44 @@ def build_cell(
     def abstract(specs_tree, shardings):
         return spmd.abstract_tree(specs_tree, shardings, mesh)
 
+    on_mesh = dict(mesh=mesh, mesh_flattened=merged)
     if cell.kind == "train":
-        step = make_train_step(model, exec_cfg)
-        state_specs = train_state_specs(model, exec_cfg, per_layer=True)
-        state_sh = named_sharding_tree(state_specs, rules, mesh)
-        batch_sh = _batch_shardings(specs["batch"], rules, mesh)
         return BuiltCell(
-            step_fn=replicated_metrics(constrained(step)),
-            abstract_args=(abstract(state_specs, state_sh), abstract(specs["batch"], batch_sh)),
-            in_shardings=(state_sh, batch_sh),
+            step_fn=replicated_metrics(constrained(make_train_step(model, exec_cfg))),
+            abstract_args=(abstract(held, held_sh), abstract(batch, batch_sh)),
+            in_shardings=(held_sh, batch_sh),
             # state keeps its shardings; metrics are replicated scalars
-            out_shardings=(state_sh, None),
+            out_shardings=(held_sh, None),
             donate_argnums=(0,),
             kind="train",
+            **on_mesh,
         )
 
     prefill_step, decode_step = make_serve_steps(model)
-    param_specs = model.param_specs(stacked=False)
-    params_sh = named_sharding_tree(param_specs, rules, mesh)
-    abstract_params = abstract(param_specs, params_sh)
-    cache_specs = model.cache_specs(cell.global_batch, cell.seq_len)
-    cache_sh = named_sharding_tree(cache_specs, rules, mesh)
+    params_sh, cache_sh = held_sh["params"], held_sh["cache"]
+    abstract_params = abstract(held["params"], params_sh)
+    abstract_cache = abstract(held["cache"], cache_sh)
 
     if cell.kind == "prefill":
-        batch_sh = _batch_shardings(specs["batch"], rules, mesh)
         return BuiltCell(
             step_fn=constrained(prefill_step),
-            abstract_args=(abstract_params, abstract(specs["batch"], batch_sh),
-                           abstract(cache_specs, cache_sh)),
+            abstract_args=(abstract_params, abstract(batch, batch_sh), abstract_cache),
             in_shardings=(params_sh, batch_sh, cache_sh),
             out_shardings=(None, cache_sh),
             donate_argnums=(2,),
             kind="prefill",
+            **on_mesh,
         )
 
     # decode: one new token at the cache's last position
-    tokens_sh = _batch_shardings({"tokens": specs["tokens"]}, rules, mesh)["tokens"]
+    tokens_sh = batch_sh["tokens"]
     return BuiltCell(
         step_fn=constrained(decode_step),
-        abstract_args=(abstract_params, abstract(cache_specs, cache_sh),
-                       abstract({"t": specs["tokens"]}, {"t": tokens_sh})["t"], cell.seq_len - 1),
+        abstract_args=(abstract_params, abstract_cache,
+                       abstract(batch, batch_sh)["tokens"], cell.seq_len - 1),
         in_shardings=(params_sh, cache_sh, tokens_sh, None),
         out_shardings=(None, cache_sh),
         donate_argnums=(1,),
         kind="decode",
+        **on_mesh,
     )

@@ -18,7 +18,11 @@ The artifact keeps the reference's keys, but for two: ``fits_16g``
 ``xla_cost_analysis`` (XLA's own count, which sees each scan body once) has
 no counterpart, as no compiler runs, and is left out.  ``replicated_at``
 lists the ops that ran replicated for want of a sharding strategy, with the
-bytes each gathered to one device (`parallel.spmd`).  The default output
+bytes each gathered to one device (`parallel.spmd`).  On the multi-pod mesh
+a cell whose specs name "pod" and "data" together traces with the two
+merged into one mesh dimension of 32 (`launch.build`), which lays out every
+tensor as the 3-D mesh does; ``mesh_flattened`` records it, and
+``trace_s`` the wall seconds of the step's run.  The default output
 directory is ``artifacts/dryrun_torch``, beside the reference's.
 
 Usage:
@@ -87,6 +91,8 @@ def run_cell(arch: str, cell_name: str, mesh_kind: str, device: Optional[str] = 
         "mesh": mesh_kind,
         "chips": chips,
         "kind": built.kind,
+        "mesh_flattened": built.mesh_flattened,
+        "trace_s": round(lowered.seconds, 2),
         "lower_s": round(t_lower, 2),
         "compile_s": round(t_compile, 2),
         "memory": {
@@ -175,7 +181,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                 extra = ""
                 if status == "ok":
                     gib = art["memory"]["peak_bytes_per_device"] / 2**30
-                    extra = f" peak={gib:.2f}GiB trace={art['lower_s']}s"
+                    extra = (f" peak={gib:.2f}GiB trace={art['lower_s']}s"
+                             f"{' flattened' if art['mesh_flattened'] else ''}")
                 elif status == "skipped":
                     extra = f" ({art['reason'][:50]})"
                 else:

@@ -22,7 +22,13 @@ execute.  It gives the reference's three terms and a memory trace:
                            collective: all-reduce, all-gather,
                            reduce-scatter, all-to-all, and send/recv as
                            collective-permute (bytes received), by kind in
-                           ``collective_breakdown``;
+                           ``collective_breakdown``; a collective over
+                           several mesh dimensions that DTensor runs as one
+                           per dimension counts each step's result, while
+                           over a mesh that merges them
+                           (`launch.mesh.flat_view`) it is one collective
+                           over the merged group, as XLA's one replica
+                           group;
   * ``hbm_bytes``        — 2 × the bytes each materializing op writes (once
                            written, once read downstream): views are free;
                            an in-place op writes its target (a slice, for a

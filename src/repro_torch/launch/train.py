@@ -72,6 +72,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         cell = ShapeCell("cli", args.seq_len, args.global_batch, "train")
         built = build_cell(spec, cell, mesh, exec_override=ex)
         step_fn = built.step_fn
+        mesh = built.mesh  # ("pod", "data") merged where the cell allows it
         state = distribute_tree(state, built.in_shardings[0], mesh)
         batch_sh = built.in_shardings[1]
 

@@ -33,6 +33,7 @@ from torch.distributed.tensor import DTensor
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.models.spec import TensorSpec
+from repro_torch.parallel import spmd
 from repro_torch.parallel.constraints import shard_activation
 
 __all__ = [
@@ -329,6 +330,8 @@ def attn_apply(
         out = _chunked_sdpa(q, k, v, causal=causal, chunk=cfg.attention_chunk,
                             q_offset=q_offset, kv_len=kv_len)
     else:
+        if cache is None:  # over DTensors, a training step's keys whole (`spmd.keys_whole`)
+            k, v = spmd.keys_whole(q, k, v)
         out = _sdpa(q, k, v, causal=causal and self_attn, q_offset=q_offset, kv_len=kv_len)
 
     out = shard_activation(out, ("batch", "seq", "heads", "head_dim"))

@@ -55,7 +55,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import moe_experts, moe_route
 from repro_torch.parallel.constraints import current_context
-from repro_torch.parallel.sharding import mesh_axis_size
+from repro_torch.parallel.sharding import mesh_axis_names, mesh_axis_size, mesh_dims
 
 __all__ = ["moe_shard_map_available", "moe_apply_shard_map"]
 
@@ -74,7 +74,7 @@ def moe_shard_map_available(cfg: ModelConfig, x_shape) -> bool:
         return False
     rules, mesh = ctx
     maxis = rules.get("experts")
-    if maxis is None or not isinstance(maxis, str) or maxis not in mesh.mesh_dim_names:
+    if maxis is None or not isinstance(maxis, str) or maxis not in mesh_axis_names(mesh):
         return False
     return cfg.moe.num_experts % mesh_axis_size(mesh, maxis) == 0
 
@@ -84,18 +84,20 @@ class _Layout:
     and the process groups of the axes it communicates over."""
 
     def __init__(self, mesh, batch_axes: Tuple[str, ...], maxis: str, b: int, e: int):
-        self.tp = mesh_axis_size(mesh, maxis)
-        self.model = mesh.get_group(maxis) if self.tp > 1 else None
-        self.batch = [(mesh.get_group(a), mesh_axis_size(mesh, a)) for a in batch_axes]
+        (mdim,) = mesh_dims(mesh, (maxis,), "experts")
+        bdims = mesh_dims(mesh, batch_axes, "tokens") if batch_axes else ()
+        self.tp = mesh.size(mdim)
+        self.model = mesh.get_group(mdim) if self.tp > 1 else None
+        self.batch = [(mesh.get_group(m), mesh.size(m)) for m in bdims]
         self.shards = 1
         index = 0
-        for a in batch_axes:  # row-major over the batch axes, as a tuple spec entry
-            index = index * mesh_axis_size(mesh, a) + mesh.get_local_rank(a)
-            self.shards *= mesh_axis_size(mesh, a)
+        for m in bdims:  # row-major over the batch dims, as a tuple spec entry
+            index = index * mesh.size(m) + mesh.get_local_rank(m)
+            self.shards *= mesh.size(m)
         per = b // self.shards
         self.rows = slice(index * per, (index + 1) * per)
         e_local = e // self.tp
-        first = mesh.get_local_rank(maxis) * e_local
+        first = mesh.get_local_rank(mdim) * e_local
         self.experts = slice(first, first + e_local)
 
     def all_reduce(self, t: torch.Tensor, model: bool = True, batch: bool = True) -> torch.Tensor:
@@ -204,7 +206,7 @@ def _local(t: torch.Tensor) -> torch.Tensor:
 
 def _kept_batch_axes(rules, mesh, b: int) -> Tuple[str, ...]:
     """The batch axes the tokens shard over: a prefix whose product divides b."""
-    names = mesh.mesh_dim_names
+    names = mesh_axis_names(mesh)
     batch_axes = [a for a in _axes_tuple(rules.get("batch"))
                   if a in names and b % mesh_axis_size(mesh, a) == 0]
     keep, size = [], 1
@@ -238,9 +240,9 @@ def _moe_dtensor(p: Dict[str, Any], cfg: ModelConfig, x: DTensor, rules, mesh):
     The local views' gradients are partial sums over the axes whose ranks
     hold other tokens or other experts (``grad_placements``), which
     DTensor's backward reduces: the reference's ``shard_map`` transpose."""
-    names = tuple(mesh.mesh_dim_names)
-    mdim = names.index(rules.get("experts"))
-    bdims = [names.index(a) for a in _kept_batch_axes(rules, mesh, x.shape[0])]
+    (mdim,) = mesh_dims(mesh, (rules.get("experts"),), "experts")
+    kept = _kept_batch_axes(rules, mesh, x.shape[0])
+    bdims = list(mesh_dims(mesh, kept, "tokens")) if kept else []
     shards = 1
     for m in bdims:
         shards *= mesh.size(m)

@@ -40,7 +40,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.models.spec import flatten, unflatten
-from repro_torch.parallel.sharding import mesh_axis_size
+from repro_torch.parallel.sharding import mesh_axis_size, mesh_dims
 
 __all__ = ["pipeline_apply"]
 
@@ -49,9 +49,12 @@ class _Pod:
     """This rank's stage and the global ranks of its neighbours."""
 
     def __init__(self, mesh, pod_axis: str):
-        self.stages = mesh_axis_size(mesh, pod_axis)
-        self.stage = mesh.get_local_rank(pod_axis)
-        self.group = mesh.get_group(pod_axis)
+        # the stages' axis on a mesh dimension of its own: `mesh_dims` raises
+        # where it shares one (a mesh merging "pod" and "data")
+        (dim,) = mesh_dims(mesh, (pod_axis,), "pipeline stages")
+        self.stages = mesh.size(dim)
+        self.stage = mesh.get_local_rank(dim)
+        self.group = mesh.get_group(dim)
         ranks = dist.get_process_group_ranks(self.group)
         self.prev = ranks[self.stage - 1] if self.stage > 0 else None
         self.next = ranks[self.stage + 1] if self.stage < self.stages - 1 else None

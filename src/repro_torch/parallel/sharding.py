@@ -17,7 +17,8 @@ Rule sets:
                              (e.g. long-context decode shards "cache_seq").
 
 The mesh is a `torch.distributed.device_mesh.DeviceMesh` (`launch.mesh`);
-`mesh_axis_size` reads an axis's extent from its ``mesh_dim_names``.
+`mesh_axis_size` reads an axis's extent from its ``mesh_dim_names`` (or its
+merged axes, below).
 `named_sharding_tree` turns each resolved spec into the DTensor placements
 (`Shard` / `Replicate`, one per mesh dimension) that `distribute_tensor`
 takes.  A spec entry lists its mesh axes major first, and DTensor shards one
@@ -26,11 +27,21 @@ whose axes run against the mesh's order (the default ``cache_seq`` rule,
 ("model", "data") on a ("data", "model") mesh, where the batch leaves both
 free) has no `Shard` placements, and `placements` raises rather than lay
 the shards out in another order.
+
+A mesh may merge adjacent axes into one dimension (`launch.mesh.flat_view`:
+("pod", "data") as one dimension of 32 on the multi-pod mesh).  It keeps
+its axes' names and sizes (`mesh_axes`), so rules resolve on it as on the
+mesh it came from; `placements` maps an entry that names a merged
+dimension's axes together, in order, to one `Shard` of that dimension, and
+raises for an entry that names only some of them, or names them against
+the mesh's order: a step whose specs all lay out there runs over the merged
+mesh (`launch.build.traced_mesh`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Tuple, Union
 
 from torch.distributed.tensor import Replicate, Shard
@@ -39,7 +50,12 @@ __all__ = [
     "PartitionSpec",
     "ShardingRules",
     "default_rules",
+    "POD_DATA",
+    "merge_dim",
+    "mesh_axes",
+    "mesh_axis_names",
     "mesh_axis_size",
+    "mesh_dims",
     "named_sharding_tree",
     "placements",
     "resolve_pspec",
@@ -153,13 +169,75 @@ def default_rules(
     )
 
 
+# The multi-pod mesh's batch axes, which a step may trace merged into one
+# mesh dimension (`launch.mesh.flat_view`).
+POD_DATA = ("pod", "data")
+
+# Merged mesh dimensions by (name, size): their axes, ((name, size), ...),
+# major first.  Keyed by the dimension, not by the mesh object, so that a
+# mesh DTensor rebuilds from the same names and shape (a sub-mesh, a cached
+# copy) reads the same axes.
+_MERGED: Dict[Tuple[str, int], Tuple[Tuple[str, int], ...]] = {}
+
+
+def merge_dim(axes: Tuple[Tuple[str, int], ...]) -> str:
+    """Record a mesh dimension merging ``axes`` ((name, size), major first)
+    and return its name, the axes' names joined by "_".  Raises
+    `ValueError` where the same name and size merge other sizes already."""
+    name, axes = "_".join(a for a, _ in axes), tuple(axes)
+    key = (name, math.prod(n for _, n in axes))
+    if _MERGED.setdefault(key, axes) != axes:
+        raise ValueError(f"mesh dimension {key} merges {_MERGED[key]} already, not {axes}")
+    return name
+
+
+def mesh_axes(mesh) -> Tuple[Tuple[str, int, int], ...]:
+    """(name, size, mesh dimension) of each axis of ``mesh``, major first:
+    its dimensions, or on a dimension that merges axes (`merge_dim`), each
+    of them on that dimension."""
+    out = []
+    for m, a in enumerate(mesh.mesh_dim_names or ()):
+        size = int(mesh.size(m))
+        out += [(b, n, m) for b, n in _MERGED.get((a, size), ((a, size),))]
+    return tuple(out)
+
+
+def mesh_axis_names(mesh) -> Tuple[str, ...]:
+    """The names of ``mesh``'s axes, major first (`mesh_axes`)."""
+    return tuple(a for a, _, _ in mesh_axes(mesh))
+
+
 def mesh_axis_size(mesh, axis: str) -> int:
     """The extent of the mesh axis named ``axis`` (the reference's
     ``mesh.shape[axis]``)."""
-    names = mesh.mesh_dim_names or ()
-    if axis not in names:
-        raise KeyError(f"mesh axis {axis!r} not in {names}")
-    return int(mesh.size(names.index(axis)))
+    for a, size, _ in mesh_axes(mesh):
+        if a == axis:
+            return size
+    raise KeyError(f"mesh axis {axis!r} not in {mesh_axis_names(mesh)}")
+
+
+def mesh_dims(mesh, axes: Tuple[str, ...], what: str = "tensor") -> Tuple[int, ...]:
+    """The mesh dimensions that one tensor dimension sharded over ``axes``
+    (major first) occupies, in order.  Raises `ValueError` when the axes run
+    against the mesh's order, or name only some of a merged dimension's
+    axes or name them out of order (see the module docstring)."""
+    table, names = mesh_axes(mesh), mesh_axis_names(mesh)
+    where = {a: (m, i) for i, (a, _, m) in enumerate(table)}
+    missing = [a for a in axes if a not in where]
+    if missing:
+        raise KeyError(f"mesh axes {missing} not in {names}")
+    order = [where[a][1] for a in axes]
+    dims = sorted({where[a][0] for a in axes})
+    whole = [i for i, (_, _, m) in enumerate(table) if m in dims]
+    if order != sorted(order):
+        raise ValueError(
+            f"{what}: shards one dimension over mesh axes {tuple(axes)}, major first, but "
+            f"DTensor shards over mesh dimensions in the mesh's order {names}")
+    if order != whole:
+        raise ValueError(
+            f"{what}: shards one dimension over mesh axes {tuple(axes)}, which name part of "
+            f"a mesh dimension merging {tuple(names[i] for i in whole)}")
+    return tuple(dims)
 
 
 def resolve_pspec(spec: "TensorSpec", rules: ShardingRules, mesh) -> PartitionSpec:  # noqa: F821
@@ -205,23 +283,17 @@ def resolve_tree(specs: Any, rules: ShardingRules, mesh) -> Any:
 
 def placements(pspec: PartitionSpec, mesh, what: str = "tensor") -> Tuple[Any, ...]:
     """The DTensor placements of ``pspec`` over ``mesh``: for each mesh
-    dimension, `Shard(d)` when tensor dimension d's entry names it, else
-    `Replicate()`.  Raises `ValueError` when an entry names its mesh axes
-    against the mesh's order (see the module docstring); ``what`` names the
-    tensor in the message."""
-    names = tuple(mesh.mesh_dim_names or ())
-    out: list = [Replicate()] * len(names)
+    dimension, `Shard(d)` when tensor dimension d's entry names it (or, on
+    a merged dimension, all its axes), else `Replicate()`.  Raises
+    `ValueError` for an entry that `mesh_dims` cannot lay out (see the
+    module docstring); ``what`` names the tensor in the message."""
+    out: list = [Replicate()] * mesh.ndim
     for d, entry in enumerate(pspec):
         if entry is None:
             continue
         axes = (entry,) if isinstance(entry, str) else tuple(entry)
-        idx = [names.index(a) for a in axes]
-        if idx != sorted(idx):
-            raise ValueError(
-                f"{what}: spec {pspec} shards dimension {d} over mesh axes {axes}, major "
-                f"first, but DTensor shards over mesh dimensions in the mesh's order {names}")
-        for i in idx:
-            out[i] = Shard(d)
+        for m in mesh_dims(mesh, axes, f"{what}: spec {pspec}, dimension {d}"):
+            out[m] = Shard(d)
     return tuple(out)
 
 

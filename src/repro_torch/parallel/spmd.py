@@ -22,6 +22,8 @@ The pieces:
     through the gather's backward as a reduce-scatter onto the shards;
   * `logsumexp_last` and `pick_last`: the loss's two reductions over a
     vocab-sharded last dimension without gathering the logits;
+  * `keys_whole`: an attention product's keys and values whole along the
+    sequence where the queries' sequence is split over the same mesh dims;
   * `sharded_call`: a kernel's call on its local shards, the inputs laid out
     over the dimensions the kernel may split (batch and heads), the output
     wrapped back; the flash-attention and SSD ops take this route for
@@ -41,8 +43,11 @@ from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten, tree_map_only
 
-__all__ = ["REPLICATED", "abstract_tree", "distribute_tree", "gathered", "local_shape",
-           "logsumexp_last", "pick_last", "replicated", "sharded_call", "spmd_region"]
+from repro_torch.parallel.sharding import POD_DATA, mesh_axes
+
+__all__ = ["REPLICATED", "abstract_tree", "distribute_tree", "gathered", "keys_whole",
+           "local_shape", "logsumexp_last", "pick_last", "replicated", "sharded_call",
+           "spmd_region"]
 
 # Ops that ran replicated for want of a sharding strategy: op name → bytes
 # gathered to this rank (summed over calls).  `spmd_region` adds to it.
@@ -128,12 +133,12 @@ def distribute_tree(tree: Any, shardings: Any, mesh) -> Any:
 # FSDP: parameters gathered over the data axes where they are read
 # ---------------------------------------------------------------------------
 
-_DATA_AXES = ("pod", "data")
-
 
 def _gather_data_axes(x: DTensor) -> DTensor:
-    names = x.device_mesh.mesh_dim_names or ()
-    pl = [Replicate() if names[m] in _DATA_AXES and isinstance(p, Shard) else p
+    """``x`` gathered over the mesh dimensions of the data axes: one
+    all-gather where the mesh merges them (`launch.mesh.flat_view`)."""
+    data = {m for a, _, m in mesh_axes(x.device_mesh) if a in POD_DATA}
+    pl = [Replicate() if m in data and isinstance(p, Shard) else p
           for m, p in enumerate(x.placements)]
     return x if tuple(pl) == tuple(x.placements) else x.redistribute(x.device_mesh, pl)
 
@@ -175,7 +180,8 @@ class _GatheredList(list):
 def gathered(params: Any) -> Any:
     """``params`` as the model reads it under FSDP: a DTensor leaf read from
     it comes gathered over the data axes ("pod", "data"), its other shards
-    kept (tensor and expert parallelism over "model").  A tree without
+    kept (tensor and expert parallelism over "model"); on a mesh that merges
+    them, one all-gather over the merged dimension.  A tree without
     DTensors is returned as it is."""
     if not any(isinstance(t, DTensor) for t in tree_flatten(params)[0]):
         return params
@@ -291,6 +297,28 @@ def _local(x: DTensor, placements: Sequence[Any]) -> torch.Tensor:
 
 def _split_dims(x: DTensor, d: int) -> List[int]:
     return [m for m, p in enumerate(x.placements) if isinstance(p, Shard) and p.dim == d]
+
+
+def keys_whole(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[Any, Any]:
+    """(k, v) for an attention product with queries ``q`` (B, T, H, D) over
+    DTensors: the keys' and values' sequence (dimension 1) gathered over the
+    mesh dims that split the queries' sequence too; plain tensors as they
+    are.  Left to DTensor, a product whose two sequences are split over one
+    mesh dim splits its merged batch (B·KV·G) over that dim as well, and the
+    view back to (B, KV, G, …) cannot split B once B is smaller than the
+    ranks it is split over (B = 256 on 512 ranks), so the view ran
+    replicated, a gathered copy of the logits on every rank."""
+    if not (isinstance(q, DTensor) and isinstance(k, DTensor)):
+        return k, v
+    both = set(_split_dims(q, 1)) & set(_split_dims(k, 1))
+    if not both:
+        return k, v
+
+    def whole(x: DTensor) -> DTensor:
+        pl = [Replicate() if m in both else p for m, p in enumerate(x.placements)]
+        return x.redistribute(x.device_mesh, pl)
+
+    return whole(k), whole(v)
 
 
 def sharded_call(kind: str, fn: Callable, *args: torch.Tensor) -> torch.Tensor:

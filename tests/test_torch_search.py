@@ -93,29 +93,41 @@ def test_searches_match_reference(key, layout):
 
 
 TABLE2_JOBS = sorted(REF_JOBS)
+BOTH = ("ruya", "cherrypick")
+# The (job, seed, searches) of seeds 1-3 whose traces part from the
+# reference's at an early certified tie (steps 3-6, the two EIs equal to
+# about 1e-6); the card's Table II runs seeds 0-3.
+EARLY_TIES = [("logregr/spark/bigdata", 1, BOTH), ("join/spark/bigdata", 2, ("cherrypick",)),
+              ("pagerank/hadoop/huge", 2, ("cherrypick",)), ("linregr/spark/huge", 2, BOTH)]
 
 
-@pytest.mark.parametrize("key", TABLE2_JOBS)
-def test_exhaustion_traces_agree_on_table2_metrics(key):
+@pytest.mark.parametrize("key,seed,searches", [
+    *(pytest.param(k, 0, BOTH, id=k) for k in TABLE2_JOBS),
+    *(pytest.param(k, s, w, id=f"{k}-seed{s}-{'+'.join(w)}") for k, s, w in EARLY_TIES)])
+def test_exhaustion_traces_agree_on_table2_metrics(key, seed, searches):
     """Every Table II job, Ruya and CherryPick run to exhaustion (the
-    protocol of Table II), seed 0: late in a search the picks are among
+    protocol of Table II), seed 0, and the searches of seeds 1 and 2 with
+    an early certified tie: late in a search the picks are among
     configurations whose EI is zero to float32, so a trace may end at a
     certified tie; up to that step every Table II quantity (iterations to
     cost <= 1.2, 1.1, 1.0 x optimal) agrees with the reference's."""
     rs, ps, _, prio, rest = job_setup(key)
     n = len(rs.space)
-    runs = (
-        (ref_bo.ruya_search(rs.space, rs.cost_fn(), np.random.default_rng(0), prio, rest,
-                            to_exhaustion=True),
-         port_bo.ruya_search(ps.space, ps.cost_fn(), np.random.default_rng(0), prio, rest,
-                             to_exhaustion=True, layout="fused", device="cpu"),
-         [prio, rest] if rest else [prio], min(3, len(prio))),
-        (ref_bo.cherrypick_search(rs.space, rs.cost_fn(), np.random.default_rng(0),
-                                  to_exhaustion=True),
-         port_bo.cherrypick_search(ps.space, ps.cost_fn(), np.random.default_rng(0),
-                                   to_exhaustion=True, layout="fused", device="cpu"),
-         [list(range(n))], 3),
-    )
+    runs = []
+    if "ruya" in searches:
+        runs.append((
+            ref_bo.ruya_search(rs.space, rs.cost_fn(), np.random.default_rng(seed), prio, rest,
+                               to_exhaustion=True),
+            port_bo.ruya_search(ps.space, ps.cost_fn(), np.random.default_rng(seed), prio, rest,
+                                to_exhaustion=True, layout="fused", device="cpu"),
+            [prio, rest] if rest else [prio], min(3, len(prio))))
+    if "cherrypick" in searches:
+        runs.append((
+            ref_bo.cherrypick_search(rs.space, rs.cost_fn(), np.random.default_rng(seed),
+                                     to_exhaustion=True),
+            port_bo.cherrypick_search(ps.space, ps.cost_fn(), np.random.default_rng(seed),
+                                      to_exhaustion=True, layout="fused", device="cpu"),
+            [list(range(n))], 3))
     for r, g, pools, n_init in runs:
         cmp = hold(r, g, pools, n, rs.space, n_init, f"{key} exhaustion")
         assert cmp.steps >= n_init
