@@ -213,8 +213,10 @@ launches (K2 twice per layer and microbatch of the training step), its
 peak bytes per device the card's `max_memory_allocated` within
 `DRYRUN_PEAK_RATIO`; then one production dry-run and `run_autotune` with
 its BO on the card and on the CPU, the traces held to each other, and the
-multi-pod training cell of `DRYRUN_MULTI`, which must end ok within
-`DRYRUN_MULTI_S`.
+training cells of `DRYRUN_TRAIN` (multi-pod and single pod), which must end
+ok within `DRYRUN_MULTI_S`, their flops and peaks within `DRYRUN_FLOPS_RTOL`
+and `DRYRUN_TRAIN_PEAK_RTOL` of `DRYRUN_TRAIN_EXPECT`, and no op run
+replicated.
 
 A failed check fails the run: the script exits non-zero and prints no
 result.  It needs a CUDA card and the rest of the checkout; without either
@@ -4172,9 +4174,17 @@ DRYRUN_CELLS = {  # (a): cell -> (layers kept or None, (seq_len, global batch, k
 DRYRUN_PEAK_RATIO = (0.8, 1.25)  # predicted over measured peak bytes
 DRYRUN_PROD = ("qwen3-8b", "decode_32k", "single_pod")  # (b) and (c)
 DRYRUN_SUB_S = 600.0  # a dry-run or tuner subprocess that has not ended by then fails the phase
-# (d): 1064 s on a CPU when the multi-pod mesh was traced 3-D, not merged
-DRYRUN_MULTI = ("qwen3-8b", "train_4k", "multi_pod")
-DRYRUN_MULTI_S = 300.0  # (d) past this fails the phase
+# (d) and (e): the training cell on both production meshes (the multi-pod
+# one took 1064 s on a CPU when its mesh was traced 3-D, not merged)
+DRYRUN_TRAIN = {"d": ("qwen3-8b", "train_4k", "multi_pod"),
+                "e": ("qwen3-8b", "train_4k", "single_pod")}
+DRYRUN_MULTI_S = 300.0  # (d) or (e) past this fails the phase
+# (flops a device, peak bytes a device) of the sequence-split training step
+# as torch 2.13's DTensor shards it (the port's CPU dry-run): the step must
+# trace to them on any torch, with no op run replicated
+DRYRUN_TRAIN_EXPECT = {"d": (1.388e14, 5.527e9), "e": (2.775e14, 9.807e9)}
+DRYRUN_FLOPS_RTOL = 0.01
+DRYRUN_TRAIN_PEAK_RTOL = 0.10
 
 
 def dryrun_cell(dev, name, mesh) -> dict:
@@ -4260,10 +4270,12 @@ def phase_dryrun(dev, report) -> dict:
     (`DRYRUN_PROD` on 256 ranks of a fake world, in a subprocess); (c)
     `run_autotune` on that cell, its BO on the card and on the CPU (two
     subprocesses), the traces held to each other under the tie-aware
-    comparator; (d) the multi-pod dry-run `DRYRUN_MULTI` (512 ranks, "pod"
-    and "data" merged where its specs allow), which must end ok within
-    `DRYRUN_MULTI_S`.  (b), (c) and (d) run while (a) does.  Returns K2's
-    launches on (a)'s training step."""
+    comparator; (d) and (e) the training cell's dry-runs of `DRYRUN_TRAIN`
+    (512 ranks, "pod" and "data" merged where its specs allow; 256 ranks),
+    which must end ok within `DRYRUN_MULTI_S`, with flops and peak bytes a
+    device within `DRYRUN_FLOPS_RTOL` and `DRYRUN_TRAIN_PEAK_RTOL` of
+    `DRYRUN_TRAIN_EXPECT` and their ``replicated_at`` empty.  (b)-(e)
+    run while (a) does.  Returns K2's launches on (a)'s training step."""
     import importlib
     import tempfile
 
@@ -4279,7 +4291,7 @@ def phase_dryrun(dev, report) -> dict:
     arch, cell, mesh_kind = DRYRUN_PROD
     print(f"phase 26: the dry-run and the tuner: (a) {DRYRUN_ARCH} cells at the (1, 1) mesh "
           f"against the card, (b) {arch} x {cell} x {mesh_kind}, (c) run_autotune on it, "
-          f"(d) {' x '.join(DRYRUN_MULTI)}")
+          f"(d), (e) {' and '.join(' x '.join(c) for c in DRYRUN_TRAIN.values())}")
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
     subs = {}
     t_sub = time.perf_counter()
@@ -4290,9 +4302,8 @@ def phase_dryrun(dev, report) -> dict:
                        "--out", str(tmp / "tune_card.json")]),
         ("tune_cpu", ["repro_torch.launch.autotune", "--arch", arch, "--cell", cell,
                       "--device", "cpu", "--out", str(tmp / "tune_cpu.json")]),
-        ("multi_pod", ["repro_torch.launch.dryrun", "--arch", DRYRUN_MULTI[0], "--cell",
-                       DRYRUN_MULTI[1], "--mesh", DRYRUN_MULTI[2], "--out", str(tmp / "multi")]),
-    ):
+    ) + tuple((part, ["repro_torch.launch.dryrun", "--arch", a, "--cell", c, "--mesh", m,
+                      "--out", str(tmp / part)]) for part, (a, c, m) in DRYRUN_TRAIN.items()):
         log = open(tmp / f"{key}.log", "w")
         subs[key] = (subprocess.Popen([sys.executable, "-m", *cmd], stdout=log,
                                       stderr=subprocess.STDOUT, env=sub_env(), cwd=str(ROOT)),
@@ -4337,9 +4348,9 @@ def phase_dryrun(dev, report) -> dict:
                     raise AssertionError(f"(a) {name}: non-finite outputs")
         finally:
             dist.destroy_process_group()
-        # (b), (c), (d) ----------------------------------------------------
+        # (b)-(e) ---------------------------------------------------------
         for key, (proc, log) in subs.items():
-            limit = DRYRUN_MULTI_S if key == "multi_pod" else DRYRUN_SUB_S
+            limit = DRYRUN_MULTI_S if key in DRYRUN_TRAIN else DRYRUN_SUB_S
             try:
                 code = proc.wait(timeout=max(1.0, limit - (time.perf_counter() - t_sub)))
             except subprocess.TimeoutExpired:
@@ -4381,18 +4392,28 @@ def phase_dryrun(dev, report) -> dict:
         if tunes["tune_cpu"]["priority"] != tunes["tune_card"]["priority"]:
             raise AssertionError("(c): the priority groups differ")
         out["autotune"] = tunes
-        multi = json.loads((tmp / "multi" / f"{'__'.join(DRYRUN_MULTI)}.json").read_text())
-        mem = multi.get("memory", {})
-        print(f"  (d) {' x '.join(DRYRUN_MULTI)}: status {multi['status']}, mesh_flattened "
-              f"{multi.get('mesh_flattened')}, peak {mem.get('peak_bytes_per_device')} B a device "
-              f"({mem.get('peak_bytes_per_device', 0) / 2**30:.2f} GiB, fits_80g "
-              f"{mem.get('fits_80g')}), wall {multi.get('wall_s')} s (trace "
-              f"{multi.get('trace_s')} s), flops {multi.get('hlo_cost', {}).get('flops_per_device')}, "
-              f"replicated at {multi.get('replicated_at')}")
-        if multi["status"] != "ok" or multi["wall_s"] > DRYRUN_MULTI_S:
-            raise AssertionError(f"(d): the multi-pod dry-run did not end ok within "
-                                 f"{DRYRUN_MULTI_S} s: {multi}")
-        out["multi_pod"] = multi
+        for part, cell_key in DRYRUN_TRAIN.items():
+            art = json.loads((tmp / part / f"{'__'.join(cell_key)}.json").read_text())
+            mem, cost = art.get("memory", {}), art.get("hlo_cost", {})
+            peak, flops = mem.get("peak_bytes_per_device", 0), cost.get("flops_per_device", 0)
+            print(f"  ({part}) {' x '.join(cell_key)} (torch {torch.__version__}): status "
+                  f"{art['status']}, mesh_flattened {art.get('mesh_flattened')}, peak {peak} B a "
+                  f"device ({peak / 2**30:.2f} GiB, fits_80g {mem.get('fits_80g')}), wall "
+                  f"{art.get('wall_s')} s (trace {art.get('trace_s')} s), flops {flops}, "
+                  f"collectives {cost.get('collective_breakdown')}, replicated at "
+                  f"{art.get('replicated_at')}")
+            if art["status"] != "ok" or art["wall_s"] > DRYRUN_MULTI_S:
+                raise AssertionError(f"({part}): the dry-run did not end ok within "
+                                     f"{DRYRUN_MULTI_S} s: {art}")
+            want_flops, want_peak = DRYRUN_TRAIN_EXPECT[part]
+            replicated = art["replicated_at"]
+            if abs(flops / want_flops - 1) > DRYRUN_FLOPS_RTOL \
+                    or abs(peak / want_peak - 1) > DRYRUN_TRAIN_PEAK_RTOL or replicated:
+                raise AssertionError(
+                    f"({part}): flops {flops:.4e} (want {want_flops:.4e} within "
+                    f"{DRYRUN_FLOPS_RTOL}), peak {peak:.4e} B (want {want_peak:.4e} within "
+                    f"{DRYRUN_TRAIN_PEAK_RTOL}), ops run replicated {replicated}")
+            out[cell_key[2]] = art
     finally:
         for proc, log in subs.values():
             if proc.poll() is None:

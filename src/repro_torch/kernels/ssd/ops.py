@@ -18,9 +18,7 @@ Port of `repro/kernels/ssd/ops.py`, with its (B, NC, Q, H, ·) layout.
     reference's custom VJP is the oracle's.
   * A meta tensor in a step traced for its costs (a `kernels.META_WATCHERS`
     listener) gets the kernel's output and scratch from its shape function
-    (`kernels.meta_call`), with the
-    flops of the oracle's two products; DTensor inputs run the op on their
-    local shards (`parallel.spmd.sharded_call`).
+    (`kernels.meta_call`), with the flops of the oracle's two products.
 
 The kernel is built for 64-row tiles (`kernel.BLOCK`) and computes the
 products on the tensor cores, each f32 operand as two TF32 terms; the plain
@@ -32,7 +30,6 @@ not depend on them beyond float32 rounding.
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor
 
 from repro_torch import kernels
 from repro_torch.kernels import meta_call
@@ -125,8 +122,4 @@ def ssd_diag_chunk(
     C_: torch.Tensor,  # (B, NC, Q, G, N)
 ) -> torch.Tensor:
     """The intra-chunk term (B,NC,Q,H,P) in float32; differentiable in every input."""
-    if isinstance(x, DTensor):
-        from repro_torch.parallel.spmd import sharded_call  # local: parallel imports the models
-
-        return sharded_call("ssd", _SSDDiag.apply, x, dt, lA, B_, C_)
     return _SSDDiag.apply(x, dt, lA, B_, C_)

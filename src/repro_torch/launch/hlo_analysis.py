@@ -20,7 +20,8 @@ execute.  It gives the reference's three terms and a memory trace:
                            counts only ``dot``;
   * ``collective_bytes`` — the result bytes on this rank of each
                            collective: all-reduce, all-gather,
-                           reduce-scatter, all-to-all, and send/recv as
+                           reduce-scatter, all-to-all (DTensor's move of a
+                           shard between dimensions included), and send/recv as
                            collective-permute (bytes received), by kind in
                            ``collective_breakdown``; a collective over
                            several mesh dimensions that DTensor runs as one
@@ -70,6 +71,7 @@ _COLLECTIVES = {
     "reduce_scatter_tensor": "reduce-scatter", "reduce_scatter_": "reduce-scatter",
     "_reduce_scatter_base_": "reduce-scatter", "reduce_scatter_tensor_coalesced": "reduce-scatter",
     "all_to_all_single": "all-to-all", "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",
     "recv_": "collective-permute",
 }
 # Ops that write nothing (their outputs alias or only describe storage).

@@ -23,6 +23,7 @@ identity outside a context and on plain tensors.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -157,9 +158,9 @@ def _rms_head_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 def _project_qkv(p: Params, cfg: ModelConfig, xq: torch.Tensor,
                  xkv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     cd = cfg.cdtype
-    q = torch.einsum("btd,dhk->bthk", xq, p["wq"].to(cd))
-    k = torch.einsum("bsd,dhk->bshk", xkv, p["wk"].to(cd))
-    v = torch.einsum("bsd,dhk->bshk", xkv, p["wv"].to(cd))
+    q = spmd.project("btd,dhk->bthk", xq, p["wq"].to(cd))
+    k = spmd.project("bsd,dhk->bshk", xkv, p["wk"].to(cd))
+    v = spmd.project("bsd,dhk->bshk", xkv, p["wv"].to(cd))
     q = shard_activation(q, ("batch", "seq", "heads", "head_dim"))
     k = shard_activation(k, ("batch", "seq", "kv_heads", "head_dim"))
     v = shard_activation(v, ("batch", "seq", "kv_heads", "head_dim"))
@@ -326,16 +327,19 @@ def attn_apply(
     self_attn = kv_source is None
     if cache is None and self_attn and causal and _use_flash(cfg, t, x.device):
         out = flash_attention(q, k, v, True)
-    elif self_attn and _use_chunked(cfg, t, k.shape[1]):
-        out = _chunked_sdpa(q, k, v, causal=causal, chunk=cfg.attention_chunk,
-                            q_offset=q_offset, kv_len=kv_len)
     else:
-        if cache is None:  # over DTensors, a training step's keys whole (`spmd.keys_whole`)
-            k, v = spmd.keys_whole(q, k, v)
-        out = _sdpa(q, k, v, causal=causal and self_attn, q_offset=q_offset, kv_len=kv_len)
+        if self_attn and _use_chunked(cfg, t, k.shape[1]):
+            attend = functools.partial(_chunked_sdpa, causal=causal, chunk=cfg.attention_chunk,
+                                       kv_len=kv_len)
+        else:
+            attend = functools.partial(_sdpa, causal=causal and self_attn, kv_len=kv_len)
+        if cache is None:  # over DTensors, on this rank's query block (`spmd.query_blocks`)
+            out = spmd.query_blocks(attend, q, k, v, q_offset)
+        else:
+            out = attend(q, k, v, q_offset=q_offset)
 
     out = shard_activation(out, ("batch", "seq", "heads", "head_dim"))
-    y = torch.einsum("bthk,hkd->btd", out, p["wo"].to(cfg.cdtype))
+    y = spmd.project("bthk,hkd->btd", out, p["wo"].to(cfg.cdtype))
     if "bo" in p:
         y = y + p["bo"].to(cfg.cdtype)
     return y, cache
@@ -369,17 +373,17 @@ def mlp_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     cd = cfg.cdtype
     ffn_axes = ("batch", "seq", "ffn")
     if cfg.mlp_act == "swiglu":
-        gate = torch.einsum("btd,df->btf", x, p["wi_gate"].to(cd))
-        up = torch.einsum("btd,df->btf", x, p["wi_up"].to(cd))
+        gate = spmd.project("btd,df->btf", x, p["wi_gate"].to(cd))
+        up = spmd.project("btd,df->btf", x, p["wi_up"].to(cd))
         h = F.silu(gate.to(_F32)).to(cd) * up
         h = shard_activation(h, ffn_axes)
-        return torch.einsum("btf,fd->btd", h, p["wo"].to(cd))
-    h = torch.einsum("btd,df->btf", x, p["wi"].to(cd))
+        return spmd.project("btf,fd->btd", h, p["wo"].to(cd))
+    h = spmd.project("btd,df->btf", x, p["wi"].to(cd))
     if "bi" in p:
         h = h + p["bi"].to(cd)
     h = F.gelu(h.to(_F32), approximate="tanh").to(cd)  # jax.nn.gelu's default
     h = shard_activation(h, ffn_axes)
-    y = torch.einsum("btf,fd->btd", h, p["wo"].to(cd))
+    y = spmd.project("btf,fd->btd", h, p["wo"].to(cd))
     if "bo" in p:
         y = y + p["bo"].to(cd)
     return y
@@ -596,5 +600,5 @@ def unembed_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         w = p["embedding"].to(cfg.cdtype).T
     else:
         w = p["unembed"].to(cfg.cdtype)
-    logits = torch.einsum("btd,dv->btv", x, w).to(_F32)
+    logits = spmd.project("btd,dv->btv", x, w).to(_F32)
     return shard_activation(logits, ("batch", "seq", "vocab"))

@@ -447,8 +447,8 @@ def _build_cross_caches(layers, cfg: ModelConfig, enc: torch.Tensor,
     cd = cfg.cdtype
     for i, p in enumerate(layers):
         ca = p["cross_attn"]
-        k = torch.einsum("bsd,dhk->bshk", enc, ca["wk"].to(cd))
-        v = torch.einsum("bsd,dhk->bshk", enc, ca["wv"].to(cd))
+        k = spmd.project("bsd,dhk->bshk", enc, ca["wk"].to(cd))
+        v = spmd.project("bsd,dhk->bshk", enc, ca["wv"].to(cd))
         if "bk" in ca:
             k = k + ca["bk"].to(cd)
             v = v + ca["bv"].to(cd)

@@ -31,6 +31,7 @@ and reads each head's group itself.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -40,6 +41,7 @@ from torch.distributed.tensor import DTensor
 from repro_torch.kernels.ssd.ops import ssd_diag_chunk
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.spec import TensorSpec
+from repro_torch.parallel import spmd
 from repro_torch.parallel.constraints import shard_activation
 
 __all__ = [
@@ -210,17 +212,10 @@ def ssd_chunked(
         else torch.zeros((b, h, n, p), dtype=_F32, device=x.device)
     )
     chunk_decay = torch.exp(total_lA)  # (B, nc, H)
-    if isinstance(chunk_states, DTensor):  # no in-place writes into a plain buffer
-        entering = []
-        for c in range(nc):
-            entering.append(state)
-            state = chunk_decay[:, c, :, None, None] * state + chunk_states[:, c]
-        prev_states = torch.stack(entering, dim=1)
-    else:
-        prev_states = torch.empty((b, nc, h, n, p), dtype=_F32, device=x.device)
-        for c in range(nc):  # the state *entering* each chunk
-            prev_states[:, c] = state
-            state = chunk_decay[:, c, :, None, None] * state + chunk_states[:, c]
+    prev_states = torch.empty((b, nc, h, n, p), dtype=_F32, device=x.device)
+    for c in range(nc):  # the state *entering* each chunk
+        prev_states[:, c] = state
+        state = chunk_decay[:, c, :, None, None] * state + chunk_states[:, c]
 
     # Off-diagonal: queries read the state entering their chunk.
     decay_from_start = torch.exp(cum_lA)  # (B,nc,Q,H) — includes own dt·A
@@ -308,16 +303,21 @@ def ssm_apply(
     g, n = s.n_groups, s.d_state
     pdim = s.head_dim
 
-    z = torch.einsum("btd,de->bte", u, p["wz"].to(cd))
-    x = torch.einsum("btd,de->bte", u, p["wx"].to(cd))
+    z = spmd.project("btd,de->bte", u, p["wz"].to(cd))
+    x = spmd.project("btd,de->bte", u, p["wx"].to(cd))
     z = shard_activation(z, ("batch", "seq", "ssm_inner"))
     x = shard_activation(x, ("batch", "seq", "ssm_inner"))
-    Braw = torch.einsum("btd,de->bte", u, p["wB"].to(cd))
-    Craw = torch.einsum("btd,de->bte", u, p["wC"].to(cd))
-    dt_raw = torch.einsum("btd,dh->bth", u, p["wdt"].to(cd))
+    Braw = spmd.project("btd,de->bte", u, p["wB"].to(cd))
+    Craw = spmd.project("btd,de->bte", u, p["wC"].to(cd))
+    dt_raw = spmd.project("btd,dh->bth", u, p["wdt"].to(cd))
     # jax.nn.softplus is logaddexp(x, 0); torch's softplus turns linear above 20.
     dt = torch.logaddexp(dt_raw.to(_F32) + p["dt_bias"], torch.zeros((), device=u.device))
     A = -torch.exp(p["A_log"])  # (H,) strictly negative
+
+    # over DTensors the depthwise conv runs on channel shards, the sequence
+    # whole (the shard moved by one all-to-all, as a concatenation along a
+    # split sequence would move it inside the op)
+    x, Braw, Craw = (spmd.split_moved(a, 1, 2) for a in (x, Braw, Craw))
 
     decode = state is not None and t == 1
     conv_prev = None
@@ -344,16 +344,20 @@ def ssm_apply(
         )
         y = y1[:, None]  # (B,1,H,P)
     else:
-        init = state["ssd"] if state is not None else None
-        y, new_ssd = ssd_chunked(
-            xh, dt, A, Bh, Ch, chunk_size=s.chunk_size,
-            initial_state=init, use_kernel=use_kernel,
-        )
+        init = [state["ssd"]] if state is not None else []
+        scan = functools.partial(ssd_chunked, chunk_size=s.chunk_size, use_kernel=use_kernel)
+        if isinstance(xh, DTensor):
+            # over DTensors the scan runs on local shards, heads split and
+            # the sequence whole
+            y, new_ssd = spmd.sharded_call("ssd_chunked", scan, xh, dt, A, Bh, Ch, *init)
+        else:
+            y, new_ssd = scan(xh, dt, A, Bh, Ch, initial_state=init[0] if init else None)
 
     y = y + p["D"][None, None, :, None] * xh.to(_F32)
-    y = y.to(cd).reshape(b, t, di)
+    # laid out as z, so the gated norm's product moves no shard inside the op
+    y = shard_activation(y.to(cd).reshape(b, t, di), ("batch", "seq", "ssm_inner"))
     y = shard_activation(_gated_norm(y, z, p["norm_scale"]), ("batch", "seq", "ssm_inner"))
-    out = torch.einsum("bte,ed->btd", y, p["out_proj"].to(cd))
+    out = spmd.project("bte,ed->btd", y, p["out_proj"].to(cd))
     out = shard_activation(out, ("batch", "seq", "act_embed"))
 
     new_state = {"ssd": new_ssd, "conv": torch.cat([cpx, cpb, cpc], dim=-1)}

@@ -21,6 +21,7 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.spec import TensorSpec, tree_map
+from repro_torch.parallel import spmd
 from repro_torch.parallel.constraints import shard_activation
 from repro_torch.parallel.remat import remat_wrap
 
@@ -71,11 +72,11 @@ def _cross_from_cache(p: Dict[str, torch.Tensor], cfg: ModelConfig, h: torch.Ten
     """Cross-attention over the encoder K/V projected once at prefill: only
     the queries are projected here."""
     cd = cfg.cdtype
-    q = torch.einsum("btd,dhk->bthk", h, p["wq"].to(cd))
+    q = spmd.project("btd,dhk->bthk", h, p["wq"].to(cd))
     if "bq" in p:
         q = q + p["bq"].to(cd)
     out = L._sdpa(q, cache["k"], cache["v"], causal=False)
-    y = torch.einsum("bthk,hkd->btd", out, p["wo"].to(cd))
+    y = spmd.project("bthk,hkd->btd", out, p["wo"].to(cd))
     if "bo" in p:
         y = y + p["bo"].to(cd)
     return y

@@ -8,9 +8,11 @@ context is thread-local state set by `activation_sharding`.
 When no context is active (single-device runs) every constraint is the
 identity.  Inside one, `shard_activation` resolves the spec (a rank
 mismatch raises, as in the reference) and redistributes a `DTensor` to the
-resolved placements; a plain tensor is returned unchanged, since a
-sharding constraint never changes values (the expert-parallel MoE and the
-pipeline, which split work across ranks, read the context themselves).
+resolved placements (`parallel.spmd.redistribute`: on a mesh of CPU
+devices, too, a shard moved between tensor dimensions is one all-to-all); a
+plain tensor is returned unchanged, since a sharding constraint never
+changes values (the expert-parallel MoE and the pipeline, which split work
+across ranks, read the context themselves).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from repro_torch.parallel.sharding import ShardingRules, placements, resolve_pspec
+from repro_torch.parallel.spmd import redistribute
 
 __all__ = ["activation_sharding", "shard_activation", "current_context"]
 
@@ -60,5 +63,5 @@ def shard_activation(x: torch.Tensor, axes: Tuple[Optional[str], ...]) -> torch.
         raise ValueError(f"axes {axes} rank != array rank {x.ndim}")
     ps = resolve_pspec(TensorSpec(tuple(x.shape), x.dtype, tuple(axes)), rules, mesh)
     if isinstance(x, DTensor):
-        return x.redistribute(x.device_mesh, placements(ps, mesh, f"activation {axes}"))
+        return redistribute(x, placements(ps, mesh, f"activation {axes}"))
     return x

@@ -22,12 +22,19 @@ The pieces:
     through the gather's backward as a reduce-scatter onto the shards;
   * `logsumexp_last` and `pick_last`: the loss's two reductions over a
     vocab-sharded last dimension without gathering the logits;
-  * `keys_whole`: an attention product's keys and values whole along the
-    sequence where the queries' sequence is split over the same mesh dims;
+  * `query_blocks`: an attention in plain torch (dense or chunked) on this
+    rank's block of queries, the keys and values whole along the sequence;
+  * `project`: an activation × weight einsum on this rank's shards, so no
+    view inside it merges two split dimensions (a batch- and sequence-split
+    activation's (B, T, D) → (B·T, D)), whatever DTensor's version can
+    shard;
+  * `redistribute`: DTensor's redistribution, but for a shard moved from one
+    tensor dimension to another, which runs as an all-to-all of the port's
+    own on every mesh (on a CPU mesh DTensor gathers the whole tensor);
   * `sharded_call`: a kernel's call on its local shards, the inputs laid out
     over the dimensions the kernel may split (batch and heads), the output
-    wrapped back; the flash-attention and SSD ops take this route for
-    DTensor inputs.
+    wrapped back; the flash-attention op takes this route for DTensor
+    inputs, and so does the SSM's whole chunked scan.
 """
 
 from __future__ import annotations
@@ -38,16 +45,16 @@ from collections import defaultdict
 from typing import Any, Callable, Dict, Iterator, List, Sequence, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten, tree_map_only
 
 from repro_torch.parallel.sharding import POD_DATA, mesh_axes
 
-__all__ = ["REPLICATED", "abstract_tree", "distribute_tree", "gathered", "keys_whole",
-           "local_shape", "logsumexp_last", "pick_last", "replicated", "sharded_call",
-           "spmd_region"]
+__all__ = ["REPLICATED", "abstract_tree", "distribute_tree", "gathered", "local_shape",
+           "logsumexp_last", "pick_last", "project", "query_blocks", "redistribute",
+           "replicated", "sharded_call", "split_moved", "spmd_region"]
 
 # Ops that ran replicated for want of a sharding strategy: op name → bytes
 # gathered to this rank (summed over calls).  `spmd_region` adds to it.
@@ -266,6 +273,208 @@ def spmd_region() -> Iterator[None]:
 
 
 # ---------------------------------------------------------------------------
+# A shard moved from one tensor dimension to another: an all-to-all
+# ---------------------------------------------------------------------------
+
+
+def _all_to_all(local: torch.Tensor, mesh, m: int, gather: int, split: int) -> torch.Tensor:
+    """This rank's block after one all-to-all over mesh dim ``m`` that makes
+    dimension ``gather`` whole and splits dimension ``split``: chunk j of
+    ``split`` goes to the group's rank j, and the blocks received are laid
+    end to end along ``gather`` in rank order, as DTensor lays out shards.
+    It is the op DTensor runs for this move on the card
+    (``_dtensor.shard_dim_alltoall``, gloo's all-to-all on CPU tensors), so
+    a step counts the same bytes and memory on a CPU mesh as on the card's."""
+    group = mesh.get_group(m).group_name
+    return torch.ops._dtensor.shard_dim_alltoall(local.contiguous(), gather, split, group)
+
+
+class _ShardMove(torch.autograd.Function):
+    """``x`` with its shard on mesh dim ``m`` moved from tensor dimension
+    ``a`` to ``b`` by one all-to-all; the backward is the reverse one."""
+
+    @staticmethod
+    def forward(ctx, x, m, a, b):
+        mesh = x.device_mesh
+        out_pl = list(x.placements)
+        out_pl[m] = Shard(b)
+        ctx.meta = (mesh, m, a, b, tuple(x.placements), tuple(out_pl), x.shape, x.stride())
+        out = _all_to_all(x.to_local(), mesh, m, gather=a, split=b)
+        return DTensor.from_local(out, mesh, out_pl, run_check=False, shape=x.shape,
+                                  stride=x.stride())
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, m, a, b, x_pl, out_pl, shape, stride = ctx.meta
+        g = redistribute(g, out_pl).to_local()
+        back = _all_to_all(g, mesh, m, gather=b, split=a)
+        return (DTensor.from_local(back, mesh, x_pl, run_check=False, shape=shape,
+                                   stride=stride), None, None, None)
+
+
+def _shard_move(x: DTensor, placements: Tuple[Any, ...]):
+    """(m, a, b) where ``placements`` differ from ``x``'s only in moving the
+    shard on mesh dim m from tensor dimension a to b, no later mesh dim
+    splits either (earlier ones split the block the group of m shares, as
+    DTensor nests shards in mesh order), and both split evenly; else None."""
+    diff = [m for m, (p, q) in enumerate(zip(x.placements, placements)) if p != q]
+    if len(diff) != 1:
+        return None
+    (m,) = diff
+    p, q = x.placements[m], placements[m]
+    if not (type(p) is Shard and type(q) is Shard):  # (not `_StridedShard`)
+        return None
+    a, b = p.dim, q.dim
+    mesh = x.device_mesh
+
+    def ways(d, pl):
+        return math.prod(mesh.size(i) for i, r in enumerate(pl) if isinstance(r, Shard)
+                         and r.dim == d)
+
+    if any(isinstance(r, Shard) and r.dim in (a, b) for r in x.placements[m + 1:]) \
+            or x.shape[a] % ways(a, x.placements) or x.shape[b] % ways(b, placements):
+        return None
+    return m, a, b
+
+
+def redistribute(x: DTensor, placements: Sequence[Any]) -> DTensor:
+    """``x.redistribute(x.device_mesh, placements)``, but a move of one mesh
+    dim's shard from tensor dimension a to b (Shard(a) → Shard(b), all else
+    equal) runs as one all-to-all of the port's own (`_ShardMove`) on every
+    mesh.  It is the op DTensor runs for that move on the card; on a CPU
+    mesh DTensor takes all-gather + chunk instead, which holds the whole
+    tensor on every rank (its premise that gloo has no all-to-all no longer
+    holds)."""
+    placements = tuple(placements)
+    move = _shard_move(x, placements)
+    if move is not None:
+        return _ShardMove.apply(x, *move)
+    return x.redistribute(x.device_mesh, placements)
+
+
+def split_moved(x: torch.Tensor, src: int, dst: int) -> torch.Tensor:
+    """``x`` with the mesh dims that split its dimension ``src`` splitting
+    ``dst`` instead, where ``dst`` divides among them (`redistribute`: one
+    all-to-all a mesh dim); a plain tensor, or one whose ``src`` is whole,
+    as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    dims = _split_dims(x, src)
+    if not dims or x.shape[dst] % math.prod(x.device_mesh.size(m) for m in dims):
+        return x
+    return redistribute(x, [Shard(dst) if m in dims else p for m, p in enumerate(x.placements)])
+
+
+# ---------------------------------------------------------------------------
+# Activation × weight products on local shards
+# ---------------------------------------------------------------------------
+
+
+class _LocalOf(torch.autograd.Function):
+    """The local tensor of ``w`` laid out as ``placements``; its gradient
+    goes back as a DTensor of ``grad_placements`` (partial sums where the
+    product's other operand was split), unmoved: the redistribution that
+    gave ``w`` (an FSDP gather, `gathered`) reduce-scatters it onto its
+    shards."""
+
+    @staticmethod
+    def forward(ctx, w, placements, grad_placements):
+        ctx.meta = (w.device_mesh, grad_placements, w.shape, w.stride())
+        return redistribute(w, placements).to_local()
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, grad_pl, shape, stride = ctx.meta
+        return (DTensor.from_local(g, mesh, grad_pl, run_check=False, shape=shape,
+                                   stride=stride), None, None)
+
+
+def _letter(p: Any, subs: str):
+    """The einsum letter of the tensor dimension ``p`` splits, or None."""
+    return subs[p.dim] if isinstance(p, Shard) else None
+
+
+def _project_plan(eq: str, x: DTensor, w: DTensor):
+    """The layouts of `project`: x's and w's placements for the local
+    product, the output's, and x's and w's gradients'."""
+    xs, ws, os_ = _einsum_subscripts(eq)
+    contracted, outs = set(xs) & set(ws), set(os_)
+    if contracted & outs:
+        raise ValueError(f"project: {eq!r} has a batch letter on both operands")
+    mesh = x.device_mesh
+    x_pl, w_pl, out_pl, gx, gw = [], [], [], [], []
+    for m in range(mesh.ndim):
+        px, pw = x.placements[m], w.placements[m]
+        lx, lw = _letter(px, xs), _letter(pw, ws)
+        if mesh.size(m) == 1:  # one rank holds it all: any layout is the whole tensor
+            x_pl.append(px), w_pl.append(pw), gx.append(px), gw.append(pw)
+            out = next((l for l in (lx, lw) if l in outs), None)
+            out_pl.append(Shard(os_.index(out)) if out else Replicate())
+            continue
+        if lx in contracted and lw != lx:  # a split contracted dimension: whole
+            lx = None
+        if lw in contracted and lx != lw:
+            lw = None
+        if lx in outs and lw in outs:  # one mesh dim cannot split two output dims
+            if _local_bytes(x) < _local_bytes(w):
+                lx = None
+            else:
+                lw = None
+        x_pl.append(Shard(xs.index(lx)) if lx else Replicate())
+        w_pl.append(Shard(ws.index(lw)) if lw else Replicate())
+        if lx and lx == lw:  # both split the contracted dimension: partial sums
+            out_pl.append(Partial())
+            gx.append(x_pl[-1]), gw.append(w_pl[-1])
+            continue
+        split = lx or lw
+        out_pl.append(Shard(os_.index(split)) if split else Replicate())
+        gx.append(x_pl[-1] if lx else Partial() if lw else Replicate())
+        gw.append(w_pl[-1] if lw else Partial() if lx else Replicate())
+    return tuple(x_pl), tuple(w_pl), tuple(out_pl), tuple(gx), tuple(gw)
+
+
+def _einsum_subscripts(eq: str) -> Tuple[str, str, str]:
+    ins, out = eq.replace(" ", "").split("->")
+    xs, ws = ins.split(",")
+    return xs, ws, out
+
+
+def project(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, x, w)`` of an activation ``x`` by a weight ``w``
+    (two operands, every letter of ``w`` contracted or in the output).  On
+    plain tensors it is that einsum.  Over DTensors it runs on this rank's
+    shards, so that no view inside the einsum merges two split dimensions
+    (DTensor shards such a view on some versions and replicates it on
+    others): x keeps its splits of output dimensions (batch, sequence);
+    w is laid out with its contracted dimensions whole and its output
+    dimensions split only over mesh dims x leaves free, unless w's local
+    shard is the smaller to gather, in which case x gives up that mesh dim
+    instead (the unembedding, whose vocabulary outweighs a rank's
+    activations); a contracted dimension split alike in both stays split,
+    and the output is a partial sum there.  The plain einsum runs on the
+    local tensors, and the result is wrapped back in the layout that
+    follows.  Gradients: x's come back in the layout x came in, w's as a
+    partial sum over the mesh dims on which x is split and w is not."""
+    if not (isinstance(x, DTensor) or isinstance(w, DTensor)):
+        return torch.einsum(eq, x, w)
+    mesh = (x if isinstance(x, DTensor) else w).device_mesh
+    rep = [Replicate()] * mesh.ndim
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, rep, run_check=False)
+    if not isinstance(w, DTensor):
+        w = DTensor.from_local(w, mesh, rep, run_check=False)
+    x_pl, w_pl, out_pl, gx, gw = _project_plan(eq, x, w)
+    xl = redistribute(x, x_pl).to_local(grad_placements=gx)
+    wl = _LocalOf.apply(w, w_pl, gw)
+    out = torch.einsum(eq, xl, wl)
+    xs, ws, os_ = _einsum_subscripts(eq)
+    size = dict(zip(xs, x.shape)) | dict(zip(ws, w.shape))
+    shape = tuple(size[c] for c in os_)
+    return DTensor.from_local(out, mesh, out_pl, run_check=False, shape=torch.Size(shape),
+                              stride=_contiguous_stride(shape))
+
+
+# ---------------------------------------------------------------------------
 # Kernels on their local shards
 # ---------------------------------------------------------------------------
 
@@ -290,35 +499,44 @@ def _layout(x: DTensor, keep: Dict[int, Sequence[int]]) -> List[Any]:
     return out
 
 
-def _local(x: DTensor, placements: Sequence[Any]) -> torch.Tensor:
-    x = x.redistribute(x.device_mesh, tuple(placements))
-    return x.to_local(grad_placements=tuple(placements))
+def _local(x: DTensor, placements: Sequence[Any], partial: Sequence[int] = ()) -> torch.Tensor:
+    """``x``'s local tensor laid out as ``placements``; its gradient comes
+    back in that layout, but as a partial sum over the mesh dims
+    ``partial`` (where the ranks holding one block each add their share)."""
+    grads = tuple(Partial() if m in partial else p for m, p in enumerate(placements))
+    return redistribute(x, placements).to_local(grad_placements=grads)
 
 
 def _split_dims(x: DTensor, d: int) -> List[int]:
     return [m for m, p in enumerate(x.placements) if isinstance(p, Shard) and p.dim == d]
 
 
-def keys_whole(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[Any, Any]:
-    """(k, v) for an attention product with queries ``q`` (B, T, H, D) over
-    DTensors: the keys' and values' sequence (dimension 1) gathered over the
-    mesh dims that split the queries' sequence too; plain tensors as they
-    are.  Left to DTensor, a product whose two sequences are split over one
-    mesh dim splits its merged batch (B·KV·G) over that dim as well, and the
-    view back to (B, KV, G, …) cannot split B once B is smaller than the
-    ranks it is split over (B = 256 on 512 ranks), so the view ran
-    replicated, a gathered copy of the logits on every rank."""
-    if not (isinstance(q, DTensor) and isinstance(k, DTensor)):
-        return k, v
-    both = set(_split_dims(q, 1)) & set(_split_dims(k, 1))
-    if not both:
-        return k, v
-
-    def whole(x: DTensor) -> DTensor:
-        pl = [Replicate() if m in both else p for m, p in enumerate(x.placements)]
-        return x.redistribute(x.device_mesh, pl)
-
-    return whole(k), whole(v)
+def query_blocks(fn: Callable, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 q_offset: Any = None) -> torch.Tensor:
+    """``fn(q, k, v, q_offset=q_offset)``, an attention in plain torch over
+    (B, T, H, D) queries and (B, S, KV, D) keys and values.  Over DTensors
+    split alike over batch and sequence only (a sequence-split training
+    step), it runs on this rank's block of queries: the keys and values
+    whole along the sequence, the block's first position added to
+    ``q_offset``, the output in the queries' layout; the keys' and values'
+    gradients are partial sums over the mesh dims that split the queries'
+    sequence, reduce-scattered back onto their shards.  Any other input
+    takes ``fn`` as it is (DTensor's own route)."""
+    dts = (q, k, v)
+    if not (all(isinstance(a, DTensor) for a in dts)
+            and q.placements == k.placements == v.placements
+            and all(isinstance(p, Replicate) or (type(p) is Shard and p.dim in (0, 1))
+                    for p in q.placements)):
+        return fn(q, k, v, q_offset=q_offset)
+    mesh, seq = q.device_mesh, _split_dims(q, 1)
+    whole = [Replicate() if m in seq else p for m, p in enumerate(q.placements)]
+    grads = [Partial() if m in seq else p for m, p in enumerate(q.placements)]
+    ql = q.to_local()
+    kl, vl = (redistribute(a, whole).to_local(grad_placements=grads) for a in (k, v))
+    start = _shard_index(mesh, seq) * ql.shape[1] + (q_offset or 0)
+    out = fn(ql, kl, vl, q_offset=start)
+    return DTensor.from_local(out, mesh, q.placements, run_check=False, shape=q.shape,
+                              stride=_contiguous_stride(q.shape))
 
 
 def sharded_call(kind: str, fn: Callable, *args: torch.Tensor) -> torch.Tensor:
@@ -332,20 +550,27 @@ def sharded_call(kind: str, fn: Callable, *args: torch.Tensor) -> torch.Tensor:
         groups of the GQA mapping (keys and values then shard with them) or
         lies inside one group (each rank then takes its one KV head);
         everything else, a sharded sequence included, is gathered.
-      * ``"ssd"``: ``fn(x, dt, lA, B, C)`` over (B, NC, Q, H, ·) inputs, B and
-        C per group (B, NC, Q, G, N).  Batch shards stay, heads as above
-        with groups in the place of KV heads.
+      * ``"ssd_chunked"``: ``fn(x, dt, A, B, C, initial_state=s) -> (y,
+        state)``, the whole chunked scan (`models.ssm.ssd_chunked`) over
+        (B, L, H, ·) inputs, A (H,), B and C per group (B, L, G, N), and an
+        optional sixth argument, the initial state s (B, H, N, P).  Batch
+        shards stay, heads as above with groups in the place of KV heads,
+        and the sequence is whole on each rank, so its chunks and the
+        recurrence across them are local; y takes x's layout, the states
+        their batch and heads shards.
 
     The output takes the queries' (or x's) layout.  Differentiable: the
-    gradients come back through the same layouts."""
+    gradients come back through the same layouts, as partial sums where
+    several ranks read one block (a KV head or group shared by the ranks of
+    its query heads; A over the batch shards)."""
     lead = args[0]
     mesh = lead.device_mesh
     batch = _split_dims(lead, 0)
-    hdim = 2 if kind == "attention" else 3
+    hdim = 2  # the heads of q and of x
     h = lead.shape[hdim]
     free = [m for m in range(mesh.ndim) if m not in batch and mesh.size(m) > 1]
     heads = free if h % math.prod(mesh.size(m) for m in free) == 0 else _split_dims(lead, hdim)
-    g = args[1].shape[2] if kind == "attention" else args[3].shape[3]
+    g = args[1].shape[2] if kind == "attention" else args[3].shape[hdim]
     n = math.prod(mesh.size(m) for m in heads)
     per = h // g  # query heads per KV head (or per group)
     h_local = h // n if h % n == 0 else 0
@@ -358,17 +583,29 @@ def sharded_call(kind: str, fn: Callable, *args: torch.Tensor) -> torch.Tensor:
     main = _layout(lead, {0: batch, hdim: heads})
     grouped = _layout(lead, {0: batch, hdim: group_keep})
 
-    def pick(t: torch.Tensor) -> torch.Tensor:  # this rank's one KV head (or group)
-        return t if take is None else t.narrow(hdim, take, 1)
+    def pick(t: DTensor) -> torch.Tensor:
+        """This rank's KV heads (or groups); where ranks share one, each
+        gives back its share of that one's gradient, a partial sum over the
+        heads' mesh dims."""
+        if take is None:
+            return _local(t, grouped)
+        return _local(t, grouped, partial=heads).narrow(hdim, take, 1)
 
     if kind == "attention":
         q, k, v = args
-        out = fn(_local(q, main), pick(_local(k, grouped)), pick(_local(v, grouped)))
-    elif kind == "ssd":
-        x, dt, lA, B_, C_ = args
-        row = _layout(lead, {0: batch, 3: heads})
-        out = fn(_local(x, main), _local(dt, row), _local(lA, row),
-                 pick(_local(B_, grouped)), pick(_local(C_, grouped)))
+        out = fn(_local(q, main), pick(k), pick(v))
+    elif kind == "ssd_chunked":
+        x, dt, A, B_, C_, *init = args
+        rep = [Replicate()] * mesh.ndim
+        A, *init = (a if isinstance(a, DTensor) else
+                    DTensor.from_local(a, mesh, rep, run_check=False) for a in [A] + init)
+        state_pl = _layout(lead, {0: batch, 1: heads})
+        y, state = fn(_local(x, main), _local(dt, _layout(lead, {0: batch, 2: heads})),
+                      # A (H,) has no batch: each batch shard adds its tokens' share
+                      _local(A, _layout(lead, {0: heads}), partial=batch), pick(B_), pick(C_),
+                      initial_state=_local(init[0], state_pl) if init else None)
+        return (DTensor.from_local(y, mesh, tuple(main), run_check=False),
+                DTensor.from_local(state, mesh, tuple(state_pl), run_check=False))
     else:
         raise ValueError(f"unknown kind {kind!r}")
     return DTensor.from_local(out, mesh, tuple(main), run_check=False)

@@ -7,8 +7,8 @@ dimension (`repro_torch.launch.mesh.flat_view`, `launch.build.traced_mesh`).
     default cache rule of a batch-1 cell, whose axes run against the
     mesh's order.  The merged mesh keeps the 3-D mesh's ranks, axes and
     resolved specs, one FSDP gather over it is one all-gather, and an
-    attention product whose two sequences are split keeps its view split
-    (`spmd.keys_whole`).
+    attention whose two sequences are split runs on query blocks with the
+    keys whole, nothing replicated (`spmd.query_blocks`).
   * On a (2, 2, 2) fake mesh, 3-D against merged, in float32: the pieces
     of a step that address the "model" dimension under the default rules
     (the loss over vocab shards, the flash attention on local shards, with
@@ -25,6 +25,7 @@ reference.
 """
 
 import dataclasses
+import functools
 import time
 
 import pytest
@@ -147,17 +148,19 @@ def test_attention_keys_whole_where_both_sequences_split(meshes):
     batch and the sequence (whisper-tiny's decoder on the CPU's route, B =
     256, T = 4096) on the merged multi-pod mesh: left to DTensor, the
     product also splits its merged batch over "model", 512 ways, and the
-    view back to (B, KV, G, T, S) runs replicated; with the keys whole
-    along the sequence (`spmd.keys_whole`, as `layers.attn_apply` takes
-    them without a cache) it stays split."""
+    view back to (B, KV, G, T, S) runs replicated; on each rank's block of
+    queries with the keys whole along the sequence (`spmd.query_blocks`, as
+    `layers.attn_apply` takes them without a cache) nothing does, and the
+    output keeps the queries' layout."""
     flat = port_mesh.flat_view(meshes["multi_pod"])
     spec = TensorSpec((256, 4096, 6, 64), torch.float32, ())
     q, k, v = (spmd.abstract_tree({"x": spec}, {"x": (Shard(0), Shard(1))}, flat)["x"]
                for _ in range(3))
+    attend = functools.partial(L._sdpa, causal=True)
     for whole in (False, True):
         spmd.REPLICATED.clear()
         with spmd.spmd_region():
-            out = L._sdpa(q, *(spmd.keys_whole(q, k, v) if whole else (k, v)), causal=True)
+            out = spmd.query_blocks(attend, q, k, v) if whole else attend(q, k, v)
         assert bool(spmd.REPLICATED) != whole, dict(spmd.REPLICATED)
     assert tuple(out.placements) == (Shard(0), Shard(1))
 

@@ -259,3 +259,81 @@ def train_mesh_worker(rank, world, argv, ckpt_root):
     train.build_cell = recorded
     train.main(list(argv) + ["--mesh", "single_pod", "--ckpt-dir", f"{ckpt_root}/rank{rank}"])
     return {"metrics": seen, "refusal": refusal}
+
+
+def steering_worker(rank, world, x, c, qkv, chunk, kernel_cases):
+    """Two of `parallel.spmd`'s routes on a mesh of ``world`` CPU ranks
+    ("model"):
+
+      * ``"move"``: a (B, T, V) tensor sharded over its last dimension, moved
+        to its second dimension by the port's all-to-all
+        (`spmd.redistribute`) and by DTensor's ``redistribute``: each
+        route's local result and the local gradient of sum(y · c) in x;
+      * ``"blocks"``: the chunked attention of ``qkv`` (causal, ``chunk``
+        keys a step) on each rank's block of queries (`spmd.query_blocks`),
+        the sequence split over "model": the whole output and the whole
+        gradients of sum(out · c) in q, k and v;
+      * ``"kernels"``: `sharded_kernel` for each of ``kernel_cases``, name →
+        (the mesh's one axis, its arguments)."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.layers import _chunked_sdpa
+    from repro_torch.parallel import spmd
+
+    mesh = make_mesh((world,), ("model",), "cpu")
+    out = {"move": spmd._shard_move(distribute_tensor(torch.from_numpy(x), mesh, [Shard(2)]),
+                                    (Shard(1),))}
+    for name, move in (("port", lambda d: spmd.redistribute(d, [Shard(1)])),
+                       ("dtensor", lambda d: d.redistribute(mesh, [Shard(1)]))):
+        d = distribute_tensor(torch.from_numpy(x), mesh, [Shard(2)]).requires_grad_(True)
+        y = move(d)
+        local_c = torch.from_numpy(c).chunk(world, dim=1)[rank]
+        (y.to_local() * local_c).sum().backward()
+        out[name] = {"y": y.to_local().detach().numpy(), "placements": tuple(y.placements),
+                     "grad": d.grad.to_local().numpy(),
+                     "grad_placements": tuple(d.grad.placements)}
+    q, k, v, g = (distribute_tensor(torch.from_numpy(a), mesh, [Shard(1)]).requires_grad_(True)
+                  for a in qkv)
+
+    def chunked(q_, k_, v_, q_offset=None):
+        return _chunked_sdpa(q_, k_, v_, causal=True, chunk=chunk, q_offset=q_offset)
+
+    o = spmd.query_blocks(chunked, q, k, v)
+    (o.to_local() * g.to_local().detach()).sum().backward()
+    out["blocks"] = {"out": o.full_tensor().detach().numpy(),
+                     "placements": tuple(o.placements),
+                     **{f"g{n}": a.grad.full_tensor().numpy() for n, a in zip("qkv", (q, k, v))}}
+    out["kernels"] = {name: sharded_kernel(name, make_mesh((world,), (axis,), "cpu"), args)
+                      for name, (axis, args) in kernel_cases.items()}
+    return out
+
+
+def sharded_kernel(name, mesh, args):
+    """`spmd.sharded_call` of a kernel's plain stand-in (``name`` before a
+    colon: "attention", `layers._sdpa`, or "ssd_chunked",
+    `ssm.ssd_chunked`) on ``mesh``.  ``args``: (array, the tensor dimension
+    it is split on over the mesh, or None) for each input, then the list of
+    cotangents c, one per output.  Returns the outputs and the gradients of
+    Σ out · c in every input, whole."""
+    import functools
+
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.models.layers import _sdpa
+    from repro_torch.models.ssm import ssd_chunked
+    from repro_torch.parallel import spmd
+
+    kind, fn = {"attention": ("attention", functools.partial(_sdpa, causal=True)),
+                "ssd_chunked": ("ssd_chunked", functools.partial(
+                    ssd_chunked, chunk_size=4, use_kernel=False))}[name.split(":")[0]]
+    *inputs, cots = args
+    ins = [distribute_tensor(torch.from_numpy(a), mesh, [Replicate() if d is None else Shard(d)])
+           .requires_grad_(True) for a, d in inputs]
+    outs = spmd.sharded_call(kind, fn, *ins)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    loss = sum((o * distribute_tensor(torch.from_numpy(c), mesh, o.placements)).sum()
+               for o, c in zip(outs, cots))
+    loss.full_tensor().backward()
+    return {"outs": [o.full_tensor().detach().numpy() for o in outs],
+            "grads": [a.grad.full_tensor().numpy() for a in ins]}
