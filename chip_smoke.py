@@ -176,7 +176,8 @@ Phases, each reported on its own lines:
      (36 layers, 4 x 1024 cache): the dry-run's peak bytes, flops and
      K2/K3 calls beside one real run of the same step on the card
      (`max_memory_allocated`, launches); (b) the reference's qwen3-8b x
-     decode_32k x single_pod cell on 256 ranks of a fake world; (c)
+     decode_32k x single_pod cell on 256 ranks of a fake world, its cache
+     written and attended on each rank's slice, nothing replicated; (c)
      `run_autotune` on it, its BO on the card and on the CPU.  (b) and (c)
      run in subprocesses while (a) runs.
 
@@ -215,8 +216,8 @@ peak bytes per device the card's `max_memory_allocated` within
 its BO on the card and on the CPU, the traces held to each other, and the
 training cells of `DRYRUN_TRAIN` (multi-pod and single pod), which must end
 ok within `DRYRUN_MULTI_S`, their flops and peaks within `DRYRUN_FLOPS_RTOL`
-and `DRYRUN_TRAIN_PEAK_RTOL` of `DRYRUN_TRAIN_EXPECT`, and no op run
-replicated.
+and `DRYRUN_TRAIN_PEAK_RTOL` of `DRYRUN_TRAIN_EXPECT` (the production cell's
+of `DRYRUN_PROD_EXPECT`), and no op run replicated in any of the three.
 
 A failed check fails the run: the script exits non-zero and prints no
 result.  It needs a CUDA card and the rest of the checkout; without either
@@ -4185,6 +4186,10 @@ DRYRUN_MULTI_S = 300.0  # (d) or (e) past this fails the phase
 DRYRUN_TRAIN_EXPECT = {"d": (1.388e14, 5.527e9), "e": (2.775e14, 9.807e9)}
 DRYRUN_FLOPS_RTOL = 0.01
 DRYRUN_TRAIN_PEAK_RTOL = 0.10
+# (b): (flops a device, peak bytes a device) of `DRYRUN_PROD`, its cache
+# written and attended on each rank's slice of the cache length (torch
+# 2.13's CPU dry-run), held to the same tolerances
+DRYRUN_PROD_EXPECT = (1.7232e10, 3.0815e9)
 
 
 def dryrun_cell(dev, name, mesh) -> dict:
@@ -4253,6 +4258,21 @@ def dryrun_cell(dev, name, mesh) -> dict:
             "peak_ratio": predicted["peak_bytes"] / measured["peak_bytes"], "finite": finite}
 
 
+def held_to_expected(part, art, want) -> None:
+    """Raise unless the dry-run artifact ``art`` of phase 26's ``part`` has
+    flops and peak bytes a device within `DRYRUN_FLOPS_RTOL` and
+    `DRYRUN_TRAIN_PEAK_RTOL` of ``want`` (flops, peak) and no op run
+    replicated."""
+    flops, peak = art["hlo_cost"]["flops_per_device"], art["memory"]["peak_bytes_per_device"]
+    want_flops, want_peak = want
+    if abs(flops / want_flops - 1) > DRYRUN_FLOPS_RTOL \
+            or abs(peak / want_peak - 1) > DRYRUN_TRAIN_PEAK_RTOL or art["replicated_at"]:
+        raise AssertionError(
+            f"({part}): flops {flops:.4e} (want {want_flops:.4e} within {DRYRUN_FLOPS_RTOL}), "
+            f"peak {peak:.4e} B (want {want_peak:.4e} within {DRYRUN_TRAIN_PEAK_RTOL}), "
+            f"ops run replicated {art['replicated_at']}")
+
+
 def sub_env() -> dict:
     import os
 
@@ -4267,7 +4287,9 @@ def phase_dryrun(dev, report) -> dict:
     whole, at the (1, 1) mesh (a gloo group of one), beside one real run of
     the same step on the card: the kernel counts must equal the launches and
     the peaks agree within `DRYRUN_PEAK_RATIO`; (b) one production dry-run
-    (`DRYRUN_PROD` on 256 ranks of a fake world, in a subprocess); (c)
+    (`DRYRUN_PROD` on 256 ranks of a fake world, in a subprocess), its flops
+    and peak within `DRYRUN_FLOPS_RTOL` and `DRYRUN_TRAIN_PEAK_RTOL` of
+    `DRYRUN_PROD_EXPECT` and its ``replicated_at`` empty; (c)
     `run_autotune` on that cell, its BO on the card and on the CPU (two
     subprocesses), the traces held to each other under the tie-aware
     comparator; (d) and (e) the training cell's dry-runs of `DRYRUN_TRAIN`
@@ -4366,6 +4388,7 @@ def phase_dryrun(dev, report) -> dict:
               f"{art.get('wall_s')} s; artifact: {json.dumps(art)}")
         if art["status"] != "ok":
             raise AssertionError(f"(b): the dry-run failed: {art}")
+        held_to_expected("b", art, DRYRUN_PROD_EXPECT)
         out["production"] = art
         tunes = {k: json.loads((tmp / f"{k}.json").read_text()) for k in ("tune_card", "tune_cpu")}
         space = variant_space(art["kind"])
@@ -4405,14 +4428,7 @@ def phase_dryrun(dev, report) -> dict:
             if art["status"] != "ok" or art["wall_s"] > DRYRUN_MULTI_S:
                 raise AssertionError(f"({part}): the dry-run did not end ok within "
                                      f"{DRYRUN_MULTI_S} s: {art}")
-            want_flops, want_peak = DRYRUN_TRAIN_EXPECT[part]
-            replicated = art["replicated_at"]
-            if abs(flops / want_flops - 1) > DRYRUN_FLOPS_RTOL \
-                    or abs(peak / want_peak - 1) > DRYRUN_TRAIN_PEAK_RTOL or replicated:
-                raise AssertionError(
-                    f"({part}): flops {flops:.4e} (want {want_flops:.4e} within "
-                    f"{DRYRUN_FLOPS_RTOL}), peak {peak:.4e} B (want {want_peak:.4e} within "
-                    f"{DRYRUN_TRAIN_PEAK_RTOL}), ops run replicated {replicated}")
+            held_to_expected(part, art, DRYRUN_TRAIN_EXPECT[part])
             out[cell_key[2]] = art
     finally:
         for proc, log in subs.values():

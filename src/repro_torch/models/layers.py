@@ -191,13 +191,25 @@ def _sdpa(
     i + q_offset >= j); ``kv_len``: only the first ``kv_len`` slots are valid.
     """
     b, t, h, hd = q.shape
+    logits = _masked_logits(q, k, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgts,bskh->btkgh", probs.to(v.dtype), v)
+    return out.reshape(b, t, h, hd)
+
+
+def _masked_logits(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
+                   q_offset: Optional[int], kv_len: Optional[int],
+                   k_offset: int = 0) -> torch.Tensor:
+    """`_sdpa`'s f32 (B, KV, G, T, S) logits, masked with -1e30; key j sits
+    at position ``k_offset`` + j (a slice of a longer cache)."""
+    b, t, h, hd = q.shape
     s, kv = k.shape[1], k.shape[2]
     qg = q.reshape(b, t, kv, h // kv, hd)
     scale = 1.0 / math.sqrt(hd)
     logits = torch.einsum("btkgh,bskh->bkgts", qg, k).to(_F32) * scale
 
     mask = None
-    kpos = torch.arange(s, device=q.device)[None, :]
+    kpos = torch.arange(s, device=q.device)[None, :] + k_offset
     if causal:
         qpos = torch.arange(t, device=q.device)[:, None] + (q_offset or 0)
         mask = qpos >= kpos  # (t, s)
@@ -206,10 +218,33 @@ def _sdpa(
         mask = valid if mask is None else (mask & valid)
     if mask is not None:
         logits = logits.masked_fill(~mask, -1e30)
+    return logits
 
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgts,bskh->btkgh", probs.to(v.dtype), v)
-    return out.reshape(b, t, h, hd)
+
+def _sdpa_parts(
+    q: torch.Tensor,  # (B, T, H, hd)
+    k: torch.Tensor,  # (B, S, KV, hd): keys k_offset .. k_offset + S of the cache
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    q_offset: Optional[int] = None,
+    kv_len: Optional[int] = None,
+    k_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`_sdpa` over one slice of the keys, its softmax not yet normalised
+    (`spmd.cache_shards` combines the slices): the row maximum and sum of
+    exponentials (B, T, H) and the unnormalised P·V (B, T, H, hd), float32.
+    The logits and masks are `_sdpa`'s at the keys' global positions; P is
+    cast to v's dtype before P·V, which is summed in float32."""
+    b, t, h, hd = q.shape
+    logits = _masked_logits(q, k, causal=causal, q_offset=q_offset, kv_len=kv_len,
+                            k_offset=k_offset)
+    row_max = logits.amax(-1)
+    p = logits.sub_(row_max[..., None]).exp_()  # in place: one (B, KV, G, T, S) block
+    row_sum = p.sum(-1)
+    pv = torch.einsum("bkgts,bskh->btkgh", p.to(v.dtype), v).to(_F32)
+    return (row_max.permute(0, 3, 1, 2).reshape(b, t, h),
+            row_sum.permute(0, 3, 1, 2).reshape(b, t, h), pv.reshape(b, t, h, hd))
 
 
 def _chunked_sdpa(
@@ -316,8 +351,8 @@ def attn_apply(
         if idx < 0 or idx + t > cache["k"].shape[1]:
             raise ValueError(f"cache of length {cache['k'].shape[1]} cannot take "
                              f"positions [{idx}, {idx + t})")
-        cache["k"][:, idx:idx + t] = k
-        cache["v"][:, idx:idx + t] = v
+        spmd.cache_write(cache["k"], k, idx)
+        spmd.cache_write(cache["v"], v, idx)
         cache_axes = ("batch", "cache_seq", "kv_heads", "head_dim")
         k = shard_activation(cache["k"], cache_axes)
         v = shard_activation(cache["v"], cache_axes)
@@ -328,15 +363,19 @@ def attn_apply(
     if cache is None and self_attn and causal and _use_flash(cfg, t, x.device):
         out = flash_attention(q, k, v, True)
     else:
-        if self_attn and _use_chunked(cfg, t, k.shape[1]):
+        chunked = self_attn and _use_chunked(cfg, t, k.shape[1])
+        if chunked:
             attend = functools.partial(_chunked_sdpa, causal=causal, chunk=cfg.attention_chunk,
                                        kv_len=kv_len)
         else:
             attend = functools.partial(_sdpa, causal=causal and self_attn, kv_len=kv_len)
-        if cache is None:  # over DTensors, on this rank's query block (`spmd.query_blocks`)
+        if cache is None or chunked:
+            # over DTensors, on this rank's query block (`spmd.query_blocks`);
+            # the chunked attention's logits are never whole along the keys
             out = spmd.query_blocks(attend, q, k, v, q_offset)
-        else:
-            out = attend(q, k, v, q_offset=q_offset)
+        else:  # over DTensors, on this rank's slice of the cache (`spmd.cache_shards`)
+            parts = functools.partial(_sdpa_parts, causal=causal and self_attn, kv_len=kv_len)
+            out = spmd.cache_shards(attend, parts, q, k, v, q_offset)
 
     out = shard_activation(out, ("batch", "seq", "heads", "head_dim"))
     y = spmd.project("bthk,hkd->btd", out, p["wo"].to(cfg.cdtype))

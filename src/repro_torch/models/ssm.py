@@ -249,6 +249,13 @@ def ssd_decode_step(
     return y, new_state
 
 
+def _decode_as_scan(x, dt, A, B_, C_, initial_state):
+    """`ssd_decode_step` with `ssd_chunked`'s signature, over inputs of
+    length 1: (y (B,1,H,P), new_state)."""
+    y, new_state = ssd_decode_step(initial_state, x[:, 0], dt[:, 0], A, B_[:, 0], C_[:, 0])
+    return y[:, None], new_state
+
+
 # ---------------------------------------------------------------------------
 # Full layer
 # ---------------------------------------------------------------------------
@@ -338,7 +345,12 @@ def ssm_apply(
     Bh = Braw.reshape(b, t, g, n)
     Ch = Craw.reshape(b, t, g, n)
 
-    if decode:
+    if decode and isinstance(xh, DTensor):
+        # over DTensors the step runs on local shards as the scan does (its
+        # einsums merge batch and heads, both split)
+        y, new_ssd = spmd.sharded_call("ssd_chunked", _decode_as_scan, xh, dt, A, Bh, Ch,
+                                       state["ssd"])
+    elif decode:
         y1, new_ssd = ssd_decode_step(
             state["ssd"], xh[:, 0], dt[:, 0], A, Bh[:, 0], Ch[:, 0]
         )

@@ -24,10 +24,14 @@ The pieces:
     vocab-sharded last dimension without gathering the logits;
   * `query_blocks`: an attention in plain torch (dense or chunked) on this
     rank's block of queries, the keys and values whole along the sequence;
+  * `cache_write` and `cache_shards`: new keys and values written into this
+    rank's slice of a KV cache's length, and an attention over the cache on
+    that slice, the softmax combined across the slices by all-reduces;
   * `project`: an activation × weight einsum on this rank's shards, so no
     view inside it merges two split dimensions (a batch- and sequence-split
     activation's (B, T, D) → (B·T, D)), whatever DTensor's version can
-    shard;
+    shard, and a batch-1 product's contraction split over a mesh dim that
+    splits neither operand;
   * `redistribute`: DTensor's redistribution, but for a shard moved from one
     tensor dimension to another, which runs as an all-to-all of the port's
     own on every mesh (on a CPU mesh DTensor gathers the whole tensor);
@@ -52,9 +56,9 @@ from torch.utils._pytree import tree_flatten, tree_map_only
 
 from repro_torch.parallel.sharding import POD_DATA, mesh_axes
 
-__all__ = ["REPLICATED", "abstract_tree", "distribute_tree", "gathered", "local_shape",
-           "logsumexp_last", "pick_last", "project", "query_blocks", "redistribute",
-           "replicated", "sharded_call", "split_moved", "spmd_region"]
+__all__ = ["REPLICATED", "abstract_tree", "cache_shards", "cache_write", "distribute_tree",
+           "gathered", "local_shape", "logsumexp_last", "pick_last", "project", "query_blocks",
+           "redistribute", "replicated", "sharded_call", "split_moved", "spmd_region"]
 
 # Ops that ran replicated for want of a sharding strategy: op name → bytes
 # gathered to this rank (summed over calls).  `spmd_region` adds to it.
@@ -378,15 +382,15 @@ class _LocalOf(torch.autograd.Function):
     shards."""
 
     @staticmethod
-    def forward(ctx, w, placements, grad_placements):
-        ctx.meta = (w.device_mesh, grad_placements, w.shape, w.stride())
+    def forward(ctx, w, placements, grad_placements, back=None):
+        ctx.meta = (w.device_mesh, grad_placements, back, w.shape, w.stride())
         return redistribute(w, placements).to_local()
 
     @staticmethod
     def backward(ctx, g):
-        mesh, grad_pl, shape, stride = ctx.meta
-        return (DTensor.from_local(g, mesh, grad_pl, run_check=False, shape=shape,
-                                   stride=stride), None, None)
+        mesh, grad_pl, back, shape, stride = ctx.meta
+        g = DTensor.from_local(g, mesh, grad_pl, run_check=False, shape=shape, stride=stride)
+        return (g if back is None else g.redistribute(mesh, back)), None, None, None
 
 
 def _letter(p: Any, subs: str):
@@ -430,7 +434,42 @@ def _project_plan(eq: str, x: DTensor, w: DTensor):
         out_pl.append(Shard(os_.index(split)) if split else Replicate())
         gx.append(x_pl[-1] if lx else Partial() if lw else Replicate())
         gw.append(w_pl[-1] if lw else Partial() if lx else Replicate())
+    _split_free_dims(mesh, x, w, (xs, ws, os_), x_pl, w_pl, out_pl, gx, gw)
     return tuple(x_pl), tuple(w_pl), tuple(out_pl), tuple(gx), tuple(gw)
+
+
+def _split_free_dims(mesh, x, w, subs, x_pl, w_pl, out_pl, gx, gw) -> None:
+    """`_project_plan`'s lists, a contracted dimension split alike in both
+    operands over each mesh dim (of more than one rank) that splits neither
+    (either may be a partial sum there: x's is then reduce-scattered, not
+    all-reduced), where the output's local bytes are no more than the
+    weight's (a batch-1 decode's (1, 1, d) by a (d, f) weight): the output
+    is a partial sum there, not the whole product on every rank.  The first
+    contracted dimension (in x's order) that the mesh dims splitting it then
+    divide, and that no later mesh dim splits already, is taken (DTensor
+    nests shards in mesh order, so m then cuts each rank's block in place,
+    where an earlier m would move the blocks); without one, or with a
+    larger output, the plan stays."""
+    xs, ws, os_ = subs
+    size = dict(zip(xs, x.shape)) | dict(zip(ws, w.shape))
+
+    def ways(pl, subs_, letter):
+        return math.prod(mesh.size(m) for m, p in enumerate(pl)
+                         if isinstance(p, Shard) and subs_[p.dim] == letter)
+
+    for m in range(mesh.ndim):
+        if mesh.size(m) == 1 or any(isinstance(a.placements[m], Shard) for a in (x, w)):
+            continue
+        out_bytes = math.prod(size[c] // ways(out_pl, os_, c) for c in os_) * x.element_size()
+        w_bytes = math.prod(size[c] // ways(w_pl, ws, c) for c in ws) * w.element_size()
+        if out_bytes > w_bytes:
+            continue
+        for c in xs:
+            later = any(isinstance(p, Shard) and xs[p.dim] == c for p in x_pl[m + 1:])
+            if c in ws and not later and size[c] % (ways(x_pl, xs, c) * mesh.size(m)) == 0:
+                x_pl[m], w_pl[m], out_pl[m] = Shard(xs.index(c)), Shard(ws.index(c)), Partial()
+                gx[m], gw[m] = x_pl[m], w_pl[m]
+                break
 
 
 def _einsum_subscripts(eq: str) -> Tuple[str, str, str]:
@@ -451,7 +490,11 @@ def project(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     shard is the smaller to gather, in which case x gives up that mesh dim
     instead (the unembedding, whose vocabulary outweighs a rank's
     activations); a contracted dimension split alike in both stays split,
-    and the output is a partial sum there.  The plain einsum runs on the
+    and the output is a partial sum there.  A mesh dim that splits neither
+    operand splits a contracted dimension of both where the output is no
+    larger than the weight's shard (`_split_free_dims`), and that small
+    output is summed over it at once (an all-reduce), so that what follows
+    reads it whole, as before.  The plain einsum runs on the
     local tensors, and the result is wrapped back in the layout that
     follows.  Gradients: x's come back in the layout x came in, w's as a
     partial sum over the mesh dims on which x is split and w is not."""
@@ -464,14 +507,21 @@ def project(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if not isinstance(w, DTensor):
         w = DTensor.from_local(w, mesh, rep, run_check=False)
     x_pl, w_pl, out_pl, gx, gw = _project_plan(eq, x, w)
+    free = [m for m, p in enumerate(out_pl) if isinstance(p, Partial)
+            and not any(isinstance(a.placements[m], Shard) for a in (x, w))]
     xl = redistribute(x, x_pl).to_local(grad_placements=gx)
-    wl = _LocalOf.apply(w, w_pl, gw)
+    wl = _LocalOf.apply(w, w_pl, gw, [Replicate() if m in free else p for m, p in
+                                      enumerate(gw)] if free else None)
     out = torch.einsum(eq, xl, wl)
     xs, ws, os_ = _einsum_subscripts(eq)
     size = dict(zip(xs, x.shape)) | dict(zip(ws, w.shape))
     shape = tuple(size[c] for c in os_)
-    return DTensor.from_local(out, mesh, out_pl, run_check=False, shape=torch.Size(shape),
-                              stride=_contiguous_stride(shape))
+    out = DTensor.from_local(out, mesh, out_pl, run_check=False, shape=torch.Size(shape),
+                             stride=_contiguous_stride(shape))
+    if free:  # the partial sums over a split free dim (`_split_free_dims`)
+        out = out.redistribute(mesh, [Replicate() if m in free else p
+                                      for m, p in enumerate(out_pl)])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -539,6 +589,112 @@ def query_blocks(fn: Callable, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                               stride=_contiguous_stride(q.shape))
 
 
+def _cache_layouts(q: DTensor, k: DTensor) -> Tuple[List[Any], List[Any], List[int]]:
+    """The layouts of `cache_shards`: the queries' and the cache's
+    placements for the local call, and the mesh dims that split the cache
+    length.  Each mesh dim keeps the cache's split: of its length (the
+    queries whole there), batch or KV heads (the queries alike).  Where the
+    cache is whole on a mesh dim, the queries keep a batch split, or a
+    split of heads that falls on whole GQA groups (the cache then sliced
+    alike, a local copy); any other split of the queries is gathered."""
+    mesh, kv = q.device_mesh, k.shape[2]
+    q_pl: List[Any] = [Replicate()] * mesh.ndim
+    kv_pl: List[Any] = [Replicate()] * mesh.ndim
+    seq: List[int] = []
+    heads = 1  # the shards of the KV heads so far
+    for m in range(mesh.ndim):
+        n = mesh.size(m)
+        pk, pq = k.placements[m], q.placements[m]
+        dk = pk.dim if type(pk) is Shard else None
+        dq = pq.dim if type(pq) is Shard else None
+        if n == 1:
+            continue
+        if dk == 1:
+            seq.append(m)
+            kv_pl[m] = Shard(1)
+        elif dk == 0 or (dk is None and dq == 0):
+            q_pl[m] = kv_pl[m] = Shard(0)
+        elif dk == 2 or (dk is None and dq == 2 and kv % (heads * n) == 0):
+            heads *= n
+            q_pl[m] = kv_pl[m] = Shard(2)
+    return q_pl, kv_pl, seq
+
+
+def cache_write(cache: torch.Tensor, new: torch.Tensor, index: int) -> None:
+    """``cache[:, index:index + T] = new`` in place, for a (B, S, ...) cache
+    and (B, T, ...) new entries.  Over DTensors each rank writes the part of
+    [index, index + T) that falls in its slice of the cache length, into
+    its local shard (DTensor's own setitem on a length-split cache writes
+    into a gathered copy, and the cache keeps its old values): the new
+    entries come laid out as the cache, their length whole, unless they are
+    the whole cache already split as it is (a prefill from 0)."""
+    t = new.shape[1]
+    if not isinstance(cache, DTensor):
+        cache[:, index:index + t] = new
+        return
+    mesh = cache.device_mesh
+    if not isinstance(new, DTensor):
+        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    local = cache.to_local()
+    if index == 0 and t == cache.shape[1] and tuple(new.placements) == tuple(cache.placements):
+        local.copy_(new.to_local())
+        return
+    seq = _split_dims(cache, 1)
+    whole = [Replicate() if m in seq else p for m, p in enumerate(cache.placements)]
+    new = redistribute(new, whole).to_local()
+    start = _shard_index(mesh, seq) * local.shape[1]
+    lo, hi = max(index, start), min(index + t, start + local.shape[1])
+    if lo < hi:
+        local[:, lo - start:hi - start] = new[:, lo - index:hi - index]
+
+
+def cache_shards(fn: Callable, parts: Callable, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, q_offset: Any = None) -> torch.Tensor:
+    """``fn(q, k, v, q_offset=q_offset)``, an attention over (B, T, H, D)
+    queries and a KV cache (B, S, KV, D) in plain torch.  On plain tensors
+    it is that call.  Over DTensors it runs on this rank's shards
+    (`_cache_layouts`), the cache never moved: each rank attends over its
+    slice of the cache length, ``parts(q, k, v, q_offset=..., k_offset=...)``
+    giving, at global key positions from ``k_offset`` (its slice's first),
+    the row maximum and sum of exponentials (B, T, H) and the unnormalised
+    P·V (B, T, H, D), all float32; over the mesh dims that split the
+    length, an all-reduce of the maxima, a rescale and an all-reduce of the
+    sums combine them.  No rank holds the logits whole along S.  The output,
+    in v's dtype, returns in the queries' layout (splits the local call
+    gathered are re-split locally).  Only serving passes a cache: over
+    DTensors there is no gradient, and asking for one raises."""
+    dts = [a for a in (q, k, v) if isinstance(a, DTensor)]
+    if not dts:
+        return fn(q, k, v, q_offset=q_offset)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in (q, k, v)):
+        raise RuntimeError("cache_shards: the attention over a sharded cache has no gradient")
+    from torch.distributed import _functional_collectives as funcol
+
+    mesh = dts[0].device_mesh
+    rep = [Replicate()] * mesh.ndim
+    q, k, v = (a if isinstance(a, DTensor) else DTensor.from_local(a, mesh, rep, run_check=False)
+               for a in (q, k, v))
+    q_pl, kv_pl, seq = _cache_layouts(q, k)
+    ql = redistribute(q, q_pl).to_local()
+    kl, vl = (redistribute(a, kv_pl).to_local() for a in (k, v))
+    start = _shard_index(mesh, seq) * kl.shape[1]
+    row_max, row_sum, pv = parts(ql, kl, vl, q_offset=q_offset, k_offset=start)
+    if seq:
+        top = row_max
+        for m in seq:
+            top = funcol.all_reduce(top, "max", (mesh, m))
+        scale = torch.exp(row_max - top)
+        both = torch.cat([pv * scale[..., None], (row_sum * scale)[..., None]], dim=-1)
+        for m in seq:
+            both = funcol.all_reduce(both, "sum", (mesh, m))
+        pv, row_sum = both[..., :-1], both[..., -1]
+    out = (pv / row_sum[..., None]).to(v.dtype)
+    shape = q.shape[:3] + v.shape[3:]
+    whole = DTensor.from_local(out, mesh, q_pl, run_check=False, shape=shape,
+                               stride=_contiguous_stride(shape))
+    return redistribute(whole, q.placements)
+
+
 def sharded_call(kind: str, fn: Callable, *args: torch.Tensor) -> torch.Tensor:
     """``fn`` (a kernel op on plain tensors) on this rank's shards of DTensor
     ``args``.  ``kind`` names the layout:
@@ -551,7 +707,8 @@ def sharded_call(kind: str, fn: Callable, *args: torch.Tensor) -> torch.Tensor:
         lies inside one group (each rank then takes its one KV head);
         everything else, a sharded sequence included, is gathered.
       * ``"ssd_chunked"``: ``fn(x, dt, A, B, C, initial_state=s) -> (y,
-        state)``, the whole chunked scan (`models.ssm.ssd_chunked`) over
+        state)``, the whole chunked scan (`models.ssm.ssd_chunked`), or
+        one decode step over inputs of length 1 (`ssm._decode_as_scan`), over
         (B, L, H, ·) inputs, A (H,), B and C per group (B, L, G, N), and an
         optional sixth argument, the initial state s (B, H, N, P).  Batch
         shards stay, heads as above with groups in the place of KV heads,

@@ -1,7 +1,8 @@
-"""Steering DTensor in a sequence-split training step: the projections on
-local shards (`repro_torch.parallel.spmd.project`) and the port's all-to-all
-for a shard moved between tensor dimensions on a CPU mesh
-(`spmd.redistribute`).
+"""Steering DTensor in a sequence-split training step and in serving: the
+projections on local shards (`repro_torch.parallel.spmd.project`), the
+port's all-to-all for a shard moved between tensor dimensions on a CPU mesh
+(`spmd.redistribute`), and the attention over a KV cache on each rank's
+slice of the cache length (`spmd.cache_shards`).
 
   * (a) No DTensor view in a smoke training step of granite-8b and
     mamba2-370m, their sequence split over "model" (``seq_shard``, kept by
@@ -21,14 +22,30 @@ for a shard moved between tensor dimensions on a CPU mesh
     attention on each rank's block of queries (`spmd.query_blocks`) and of
     `spmd.sharded_call` where two ranks share one KV head or B/C group, or
     split the batch of the SSM's scan (gradients that are partial sums).
+  * (e) A smoke prefill and decode step of a GQA model and of an MHA model
+    whose heads do not split over "model" runs nothing replicated, merges no
+    two split dimensions in a view, and attends over a quarter of the cache
+    length a rank; so do the SSM's, the hybrid's and the chunked
+    attention's steps.
+  * (f) On the two gloo ranks, the attention over a cache split along its
+    length equals one device's and the reference's `_sdpa` (decode with
+    ``kv_len`` ending inside a shard, prefill with ``q_offset`` > 0; GQA and
+    MHA); `project` with the contraction split over a mesh dim that splits
+    neither operand equals the einsum, its gradients too; and a batch-1
+    prefill and decode steps of a hybrid and a decoder over a cache split
+    along its length equal one device's (the new keys and values written
+    into each rank's slice, `spmd.cache_write`).
   * The helpers' layouts on a (2, 4) mesh: `project` keeps an activation's
     batch and sequence splits, and declares the weight's gradient a partial
     sum there; a contracted dimension split alike on both operands stays
-    split, the output a partial sum.
+    split, the output a partial sum; a batch-1 product splits its
+    contraction over the free "data" dim, a training-sized one does not.
 
 The meshes live in a fake world of 8 ranks (`torch_dist.fake_world`), the
-traces on the ``meta`` device; (d) spawns one world of two ranks.  No JAX: the
-single-device step is held to the reference by `tests/test_torch_launch.py`.
+traces on the ``meta`` device; (d) and (f) share one world of two ranks.
+Only (f)'s comparison with the reference imports JAX, in the test process
+(a host without JAX skips it): the single-device step is held to the
+reference by `tests/test_torch_launch.py`.
 """
 
 import numpy as np
@@ -46,6 +63,7 @@ from repro_torch.models.model import Model
 from repro_torch.models.spec import abstract_tree
 from repro_torch.parallel import spmd
 from repro_torch.runtime.steps import make_train_step, train_state_specs
+from repro_torch.testing import FLOAT_ATOL, FLOAT_RTOL
 from torch_dist import fake_world, spawn, steering_worker
 
 ARCHS = ["granite-8b", "mamba2-370m"]
@@ -122,10 +140,10 @@ def test_merged_groups():
     assert merged_groups((2, 3, 4), (6, 4)) == [[0, 1]]
 
 
-def traced(spec, mesh, watch=None):
-    """`build_cell`'s training step for `CELL` on ``mesh``, lowered (under
+def traced(spec, mesh, watch=None, cell=CELL):
+    """`build_cell`'s step for ``cell`` on ``mesh``, lowered (under
     ``watch``, a dispatch mode, when given)."""
-    built = build.build_cell(spec, CELL, mesh)
+    built = build.build_cell(spec, cell, mesh)
     if watch is not None:
         step = built.step_fn
 
@@ -161,6 +179,87 @@ def test_sequence_split_step_merges_no_split_dimensions(meshes, arch):
     print(f"{arch}: flops a device x {mesh.size()} ranks {got:.6e}, one device {want:.6e}, "
           f"ratio {got / want:.5f}")
     assert abs(got / want - 1) < FLOP_RTOL
+
+
+# ------------------------------------------------------------------ (e)
+
+SERVE_MODELS = {  # name -> (arch, the smoke model's changes)
+    "gqa": ("qwen3-8b", {"num_kv_heads": 2}),
+    "mha, 6 heads over 4": ("qwen1.5-32b", {"num_heads": 6, "num_kv_heads": 6}),
+}
+SERVE_CELLS = {"prefill": ShapeCell("p", 32, 4, "prefill"),
+               "decode": ShapeCell("d", 32, 4, "decode")}
+
+
+@pytest.fixture
+def attention_calls(monkeypatch):
+    """The calls of `layers`' attention functions in a step: (name, the
+    keys' length, whether an input was a DTensor)."""
+    from repro_torch.models import layers as L
+
+    calls = []
+
+    def recorder(name, fn):
+        def recorded(q, k, v, **kw):
+            calls.append((name, k.shape[1], any(isinstance(a, DTensor) for a in (q, k, v))))
+            return fn(q, k, v, **kw)
+        return recorded
+
+    for name in ("_sdpa", "_chunked_sdpa", "_sdpa_parts"):
+        monkeypatch.setattr(L, name, recorder(name, getattr(L, name)))
+    return calls
+
+
+@pytest.mark.parametrize("kind", list(SERVE_CELLS))
+@pytest.mark.parametrize("model", list(SERVE_MODELS))
+def test_serving_step_attends_on_cache_shards(meshes, attention_calls, model, kind):
+    """(e): the cache (4, 32, KV, 16) splits its batch over "data" and its
+    length over "model"; each rank attends over 32 / 4 keys, on local
+    tensors."""
+    arch, changes = SERVE_MODELS[model]
+    spec = C.smoke(arch).replace_model(**changes)
+    cell = SERVE_CELLS[kind]
+    watch = MergedSplitViews()
+    compiled = traced(spec, meshes["cuda"], watch, cell)
+    assert watch.seen == [], watch.seen[:5]
+    assert compiled.replicated == {}
+    assert attention_calls == [("_sdpa_parts", cell.seq_len // 4, False)] * spec.model.num_layers
+    assert compiled.cost.collective_breakdown.get("all-reduce", 0) > 0
+
+
+SERVE_ROUTES = {  # name -> (arch, the smoke model's changes)
+    "ssm": ("mamba2-370m", {}),  # the decode step on local shards
+    "hybrid": ("zamba2-1.2b", {}),
+    "chunked attention": ("arctic-480b", {"attention_chunk": 8}),  # prefill on query blocks
+}
+
+
+@pytest.mark.parametrize("kind", list(SERVE_CELLS))
+@pytest.mark.parametrize("route", list(SERVE_ROUTES))
+def test_serving_steps_of_the_other_routes_run_on_local_shards(meshes, attention_calls, route,
+                                                              kind):
+    """(e) for the SSM's decode step, the hybrid's and the chunked
+    attention's prefill: nothing replicated, no view merging two split
+    dimensions (the SSM's decode einsums merge its batch and heads), and
+    every attention on local tensors (the chunked one over DTensors ran a
+    view that torch 2.11 replicates)."""
+    arch, changes = SERVE_ROUTES[route]
+    watch = MergedSplitViews()
+    compiled = traced(C.smoke(arch).replace_model(**changes), meshes["cuda"], watch,
+                      SERVE_CELLS[kind])
+    assert watch.seen == [], watch.seen[:5]
+    assert compiled.replicated == {}
+    assert not any(dtensor for _, _, dtensor in attention_calls), attention_calls
+    if route == "chunked attention" and kind == "prefill":
+        assert {name for name, _, _ in attention_calls} == {"_chunked_sdpa"}
+
+
+def test_cache_shards_refuses_a_gradient(meshes):
+    mesh = meshes["cpu"]
+    q = dt(mesh, (4, 1, 4, 16), (Shard(0), Shard(2))).requires_grad_(True)
+    k = dt(mesh, (4, 32, 4, 16), (Shard(0), Shard(1)))
+    with pytest.raises(RuntimeError, match="no gradient"):
+        spmd.cache_shards(None, None, q, k, k, 31)
 
 
 # ------------------------------------------------------------------ (c)
@@ -213,7 +312,8 @@ def gloo_ranks(tmp_path_factory):
     qkv = [rng.standard_normal(s).astype(np.float32)
            for s in ((2, 16, 4, 8), (2, 16, 2, 8), (2, 16, 2, 8), (2, 16, 4, 8))]
     ranks = spawn(steering_worker, 2, tmp_path_factory.mktemp("gloo"), *move, qkv, 4,
-                  {name: (axis, args) for name, (axis, args, _) in KERNEL_CASES.items()})
+                  {name: (axis, args) for name, (axis, args, _) in KERNEL_CASES.items()},
+                  CACHE_CASES, PRODUCT, SERVING)
     return move, qkv, ranks
 
 
@@ -245,6 +345,54 @@ def _kernel_cases():
 
 
 KERNEL_CASES = _kernel_cases()
+
+
+def _cache_cases():
+    """name → (q, k, v, q_offset, queries' heads split): a cache of 16
+    slots, 8 a rank; ``kv_len`` = q_offset + T."""
+    rng = np.random.default_rng(2)
+
+    def case(t, h, kv, q_offset, heads_split):
+        q, k, v = (rng.standard_normal(s).astype(np.float32)
+                   for s in ((2, t, h, 8), (2, 16, kv, 8), (2, 16, kv, 8)))
+        return q, k, v, q_offset, heads_split
+
+    return {"decode, gqa, kv_len 5": case(1, 4, 2, 4, True),  # rank 1 holds no valid key
+            "decode, mha, kv_len 11": case(1, 3, 3, 10, False),
+            "prefill, gqa, 5 from 6": case(5, 4, 2, 6, True),  # the mask crosses the shards
+            "prefill, mha, 5 from 6": case(5, 3, 3, 6, False)}
+
+
+CACHE_CASES = _cache_cases()
+PRODUCT = tuple(np.random.default_rng(3).standard_normal(s).astype(np.float32)
+                for s in ((1, 1, 8), (8, 6), (1, 1, 6)))
+
+
+def _serving():
+    """name → (mesh shape, (arch, smoke changes, cache, steps)): a batch-1
+    float32 smoke model on two ranks, its cache of 16 slots drawn at random
+    and split along its length (over "data" for the hybrid, "model" for the
+    decoder), a prefill then decode steps at 6 and 11 (``kv_len`` 7 and 12,
+    inside the first and the second slice).  The hybrid's prefill of 6
+    writes across the split; the decoder's of 16, its keys split as the
+    cache is, writes each rank's slice whole."""
+    from repro_torch.models.model import Model
+
+    rng = np.random.default_rng(4)
+    out = {}
+    for name, shape, arch, changes, prompt in (
+            ("hybrid, (2, 1)", (2, 1), "zamba2-1.2b", {}, 6),
+            ("gqa decoder, (1, 2)", (1, 2), "qwen3-8b", {"num_kv_heads": 2}, 16)):
+        cfg = C.smoke(arch).replace_model(compute_dtype="float32", **changes).model
+        cache = {k: rng.standard_normal(s.shape).astype(np.float32)
+                 for k, s in Model(cfg, device="meta").cache_specs(1, 16).items()}
+        steps = [(rng.integers(0, cfg.vocab_size, (1, t)), i) for t, i in ((prompt, 0), (1, 6),
+                                                                           (1, 11))]
+        out[name] = (shape, (arch, changes, cache, steps))
+    return out
+
+
+SERVING = _serving()
 
 
 @pytest.mark.parametrize("name", list(KERNEL_CASES))
@@ -299,6 +447,74 @@ def test_chunked_attention_on_query_blocks_matches_one_device(gloo_ranks):
             np.testing.assert_allclose(blocks[f"g{n}"], a.grad.numpy(), rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("name", list(CACHE_CASES))
+def test_attention_over_cache_shards_matches_one_device(gloo_ranks, name):
+    """(f): each rank attends over its 8 slots and the softmax is combined
+    across both; the output, back in the queries' layout, equals the port's
+    `_sdpa` on one device."""
+    from repro_torch.models.layers import _sdpa
+
+    q, k, v, q_offset, heads_split = CACHE_CASES[name]
+    one = _sdpa(*(torch.from_numpy(a) for a in (q, k, v)), causal=True, q_offset=q_offset,
+                kv_len=q_offset + q.shape[1]).numpy()
+    for got in (r["cache"][name] for r in gloo_ranks[2]):
+        assert got["placements"] == ((Shard(2),) if heads_split else (Replicate(),))
+        assert got["lengths"] == [8]
+        np.testing.assert_allclose(got["out"], one, rtol=FLOAT_RTOL, atol=FLOAT_ATOL)
+
+
+@pytest.mark.parametrize("name", list(CACHE_CASES))
+def test_attention_over_cache_shards_matches_the_reference(gloo_ranks, name):
+    """(f): the same numpy inputs through the reference's `_sdpa` (JAX, in
+    this process; a host without JAX, the card's, skips it)."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.models import layers as RL
+
+    q, k, v, q_offset, _ = CACHE_CASES[name]
+    ref = np.asarray(RL._sdpa(*(jnp.asarray(a) for a in (q, k, v)), causal=True,
+                              q_offset=q_offset, kv_len=q_offset + q.shape[1]))
+    for got in (r["cache"][name] for r in gloo_ranks[2]):
+        np.testing.assert_allclose(got["out"], ref, rtol=FLOAT_RTOL, atol=FLOAT_ATOL)
+
+
+def test_project_splits_a_free_contraction_like_the_einsum(gloo_ranks):
+    """(f): (1, 1, 8) by (8, 6), both whole on two ranks: the contraction
+    splits over them, and the partial sums are summed at once into a whole
+    output; values and gradients equal the einsum's."""
+    x, w, c = (torch.from_numpy(a).requires_grad_(True) for a in PRODUCT)
+    out = torch.einsum("btd,df->btf", x, w)
+    (out * c).sum().backward()
+    for got in (r["project"] for r in gloo_ranks[2]):
+        assert got["placements"] == (Replicate(),)
+        assert got["local_x"] == (1, 1, 4)
+        np.testing.assert_allclose(got["out"], out.detach().numpy(), rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(got["gx"], x.grad.numpy(), rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(got["gw"], w.grad.numpy(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", list(SERVING))
+def test_sharded_serving_matches_one_device(gloo_ranks, name):
+    """(f): `build_cell`'s prefill and decode steps on two ranks, the cache
+    written and read on each rank's slice of its length and the batch-1
+    products split over the free mesh dim, give one device's logits."""
+    from repro_torch.models.model import Model
+
+    _, (arch, changes, cache, steps) = SERVING[name]
+    model = Model(C.smoke(arch).replace_model(compute_dtype="float32", **changes).model,
+                  device="cpu", seed=0)
+    held = {k: torch.from_numpy(a.copy()) for k, a in cache.items()}
+    want = []
+    for tokens, index in steps:
+        tokens = torch.from_numpy(tokens)
+        logits, held = (model.prefill({"tokens": tokens}, held) if tokens.shape[1] > 1
+                        else model.decode_step(held, tokens, index))
+        want.append(logits.numpy())
+    for got in (r["serving"][name] for r in gloo_ranks[2]):
+        for step, (a, b) in enumerate(zip(got, want)):
+            np.testing.assert_allclose(a, b, rtol=FLOAT_RTOL, atol=FLOAT_ATOL,
+                                       err_msg=f"step {step}")
+
+
 # ----------------------------------------------------------- the layouts
 
 
@@ -337,6 +553,30 @@ def test_project_contracts_alike_split_dimensions_locally(meshes):
     out, cost, _, _ = analyze_step(lambda a, b: spmd.project("bthk,hkd->btd", a, b), x, w)
     assert tuple(out.placements) == (Shard(0), Partial())
     assert cost.collective_bytes == 0
+
+
+PLANS = {  # name -> (eq, x (shape, placements), w (shape, placements), the plan)
+    # a batch-1 decode: "data" splits neither operand, so the contraction
+    # splits over it, the output a partial sum there
+    "batch 1": ("btd,df->btf", ((1, 1, 64), (Replicate(), Replicate())),
+                ((64, 32), (Replicate(), Shard(1))),
+                ((Shard(2), Replicate()), (Shard(0), Shard(1)), (Partial(), Shard(2)),
+                 (Shard(2), Partial()), (Shard(0), Shard(1)))),
+    # a training shape with a free "model" dim (6 heads over 4): the output
+    # outweighs the weight, so the plan is the plain one
+    "training": ("btd,dhk->bthk", ((8, 32, 64), (Shard(0), Replicate())),
+                 ((64, 6, 16), (Replicate(), Replicate())),
+                 ((Shard(0), Replicate()), (Replicate(), Replicate()),
+                  (Shard(0), Replicate()), (Shard(0), Replicate()), (Partial(), Replicate()))),
+}
+
+
+@pytest.mark.parametrize("name", list(PLANS))
+def test_project_plan_splits_a_free_mesh_dim_only_for_a_small_output(meshes, name):
+    """(d)"""
+    eq, (xs, xp), (ws, wp), want = PLANS[name]
+    mesh = meshes["cpu"]
+    assert spmd._project_plan(eq, dt(mesh, xs, xp), dt(mesh, ws, wp)) == want
 
 
 def test_project_on_plain_tensors_is_the_einsum():

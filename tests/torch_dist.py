@@ -261,9 +261,9 @@ def train_mesh_worker(rank, world, argv, ckpt_root):
     return {"metrics": seen, "refusal": refusal}
 
 
-def steering_worker(rank, world, x, c, qkv, chunk, kernel_cases):
-    """Two of `parallel.spmd`'s routes on a mesh of ``world`` CPU ranks
-    ("model"):
+def steering_worker(rank, world, x, c, qkv, chunk, kernel_cases, cache_cases, product,
+                    serving):
+    """`parallel.spmd`'s routes on a mesh of ``world`` CPU ranks ("model"):
 
       * ``"move"``: a (B, T, V) tensor sharded over its last dimension, moved
         to its second dimension by the port's all-to-all
@@ -274,7 +274,13 @@ def steering_worker(rank, world, x, c, qkv, chunk, kernel_cases):
         the sequence split over "model": the whole output and the whole
         gradients of sum(out · c) in q, k and v;
       * ``"kernels"``: `sharded_kernel` for each of ``kernel_cases``, name →
-        (the mesh's one axis, its arguments)."""
+        (the mesh's one axis, its arguments);
+      * ``"cache"``: `cached_attention` for each of ``cache_cases``, name →
+        its arguments;
+      * ``"project"``: `free_dim_project` of ``product`` (x, w, c) on a mesh
+        of one axis, "data";
+      * ``"serving"``: `sharded_serving` for each of ``serving``, name →
+        (mesh shape over ("data", "model"), its other arguments)."""
     from torch.distributed.tensor import Shard, distribute_tensor
 
     from repro_torch.launch.mesh import make_mesh
@@ -306,7 +312,68 @@ def steering_worker(rank, world, x, c, qkv, chunk, kernel_cases):
                      **{f"g{n}": a.grad.full_tensor().numpy() for n, a in zip("qkv", (q, k, v))}}
     out["kernels"] = {name: sharded_kernel(name, make_mesh((world,), (axis,), "cpu"), args)
                       for name, (axis, args) in kernel_cases.items()}
+    out["cache"] = {name: cached_attention(mesh, *args) for name, args in cache_cases.items()}
+    out["project"] = free_dim_project(make_mesh((world,), ("data",), "cpu"), *product)
+    out["serving"] = {name: sharded_serving(make_mesh(shape, ("data", "model"), "cpu"), *args)
+                      for name, (shape, args) in serving.items()}
     return out
+
+
+def cached_attention(mesh, q, k, v, q_offset, heads_split):
+    """`spmd.cache_shards` over `layers._sdpa` (causal, ``kv_len`` = q_offset
+    + T) with the cache (B, S, KV, D) split along its length over ``mesh``'s
+    one dim, the queries (B, T, H, D) split over their heads where
+    ``heads_split``, else whole.  Returns the whole output, its placements,
+    and the local cache length each rank attended over."""
+    import functools
+
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.models import layers as L
+    from repro_torch.parallel import spmd
+
+    kv_len = q_offset + q.shape[1]
+    lengths = []
+
+    def parts(q_, k_, v_, **kw):
+        lengths.append(k_.shape[1])
+        return L._sdpa_parts(q_, k_, v_, causal=True, kv_len=kv_len, **kw)
+
+    qd = distribute_tensor(torch.from_numpy(q), mesh, [Shard(2) if heads_split else Replicate()])
+    kd, vd = (distribute_tensor(torch.from_numpy(a), mesh, [Shard(1)]) for a in (k, v))
+    o = spmd.cache_shards(functools.partial(L._sdpa, causal=True, kv_len=kv_len), parts,
+                          qd, kd, vd, q_offset)
+    return {"out": o.full_tensor().numpy(), "placements": tuple(o.placements),
+            "lengths": lengths}
+
+
+def free_dim_project(mesh, x, w, c):
+    """`spmd.project` of ``x`` (B, T, D) by ``w`` (D, F), both whole on
+    ``mesh`` (a batch-1 decode's product): the output's placements, the
+    shape of x in the local product, the whole output and the whole
+    gradients of Σ out · c in x and w."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.parallel import spmd
+
+    xd, wd = (distribute_tensor(torch.from_numpy(a), mesh, [Replicate()]).requires_grad_(True)
+              for a in (x, w))
+    einsum, local = torch.einsum, []
+
+    def recorded(eq, a, b):
+        local.append(tuple(a.shape))
+        return einsum(eq, a, b)
+
+    torch.einsum = recorded
+    try:
+        out = spmd.project("btd,df->btf", xd, wd)
+    finally:
+        torch.einsum = einsum
+    (out * distribute_tensor(torch.from_numpy(c), mesh, [Replicate()])).sum().full_tensor() \
+        .backward()
+    return {"placements": tuple(out.placements), "local_x": local[0],
+            "out": out.full_tensor().detach().numpy(),
+            "gx": xd.grad.full_tensor().numpy(), "gw": wd.grad.full_tensor().numpy()}
 
 
 def sharded_kernel(name, mesh, args):
@@ -337,3 +404,38 @@ def sharded_kernel(name, mesh, args):
     loss.full_tensor().backward()
     return {"outs": [o.full_tensor().detach().numpy() for o in outs],
             "grads": [a.grad.full_tensor().numpy() for a in ins]}
+
+
+
+def sharded_serving(mesh, arch, changes, cache, steps):
+    """`build_cell`'s serving steps of ``arch``'s float32 smoke model
+    (``changes`` applied, parameters from seed 0) at batch 1 on ``mesh``,
+    run in turn on the real ``cache`` (numpy, one array a name; written in
+    place): for each (tokens (1, T), index) of ``steps`` a prefill of the
+    T tokens from position 0 where T > 1, else a decode step at ``index``.
+    Returns each step's whole logits."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch import configs as C
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.launch.build import build_cell
+    from repro_torch.models.model import Model
+    from repro_torch.parallel.spmd import distribute_tree
+
+    spec = C.smoke(arch).replace_model(compute_dtype="float32", **changes)
+    model = Model(spec.model, device="cpu", seed=0)
+    cache_len = next(iter(cache.values())).shape[2]
+    built = {kind: build_cell(spec, ShapeCell(kind, cache_len, 1, kind), mesh)
+             for kind in ("prefill", "decode")}
+    params_sh, cache_sh, tokens_sh, _ = built["decode"].in_shardings
+    params = distribute_tree(model.params_tree(), params_sh, mesh)
+    held = distribute_tree({k: torch.from_numpy(a) for k, a in cache.items()}, cache_sh, mesh)
+    out = []
+    for tokens, index in steps:
+        t = distribute_tensor(torch.from_numpy(tokens), mesh, tuple(tokens_sh))
+        if tokens.shape[1] > 1:
+            logits, held = built["prefill"].step_fn(params, {"tokens": t}, held)
+        else:
+            logits, held = built["decode"].step_fn(params, held, t, index)
+        out.append(logits.full_tensor().numpy())
+    return out
