@@ -40,6 +40,7 @@ from repro_torch import kernels
 from repro_torch.kernels import meta_call
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda, tiles
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.spans import FLASH_ATTENTION_BACKWARD, span
 
 __all__ = ["flash_attention", "flash_attention_plain"]
 
@@ -94,11 +95,6 @@ def flash_attention_plain(
     return out.permute(0, 2, 1, 3).contiguous().to(q.dtype)
 
 
-# The profiler range around the backward (autograd through the oracle), so
-# that a profiled training step can show its share of device time.
-_BACKWARD_RANGE = "flash_attention.backward"
-
-
 def _forward(q, k, v, causal, sm_scale):
     if q.device.type == "cuda":
         return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
@@ -123,7 +119,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        with torch.profiler.record_function(_BACKWARD_RANGE), torch.enable_grad():
+        with span(FLASH_ATTENTION_BACKWARD), torch.enable_grad():  # autograd through the oracle
             leaves = [x.detach().requires_grad_() for x in (q, k, v)]
             out = attention_ref(*leaves, causal=ctx.causal, sm_scale=ctx.sm_scale)
             grads = torch.autograd.grad(out, leaves, g)

@@ -35,6 +35,7 @@ from repro_torch import kernels
 from repro_torch.kernels import meta_call
 from repro_torch.kernels.ssd.kernel import BLOCK, ssd_diag_cuda
 from repro_torch.kernels.ssd.ref import heads, ssd_diag_ref
+from repro_torch.spans import SSD_DIAG_BACKWARD, span
 
 __all__ = ["ssd_diag_chunk", "ssd_diag_plain"]
 
@@ -73,11 +74,6 @@ def ssd_diag_plain(
     return out.movedim(2, 3).contiguous()
 
 
-# The profiler range around the backward (autograd through the oracle), so
-# that a profiled training step can show its share of device time.
-_BACKWARD_RANGE = "ssd_diag.backward"
-
-
 def _forward(x, dt, lA, B_, C_):
     if x.device.type == "cuda" or (x.device.type == "meta" and kernels.META_WATCHERS):
         b, nc = x.shape[:2]
@@ -108,7 +104,7 @@ class _SSDDiag(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        with torch.profiler.record_function(_BACKWARD_RANGE), torch.enable_grad():
+        with span(SSD_DIAG_BACKWARD), torch.enable_grad():  # autograd through the oracle
             leaves = [a.detach().requires_grad_() for a in ctx.saved_tensors]
             out = ssd_diag_ref(*leaves)
             return torch.autograd.grad(out, leaves, g)

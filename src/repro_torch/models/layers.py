@@ -36,6 +36,7 @@ from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.models.spec import TensorSpec
 from repro_torch.parallel import spmd
 from repro_torch.parallel.constraints import shard_activation
+from repro_torch.spans import ATTENTION_CORE, MLP, span
 
 __all__ = [
     "apply_rope",
@@ -360,22 +361,23 @@ def attn_apply(
         q_offset = idx
 
     self_attn = kv_source is None
-    if cache is None and self_attn and causal and _use_flash(cfg, t, x.device):
-        out = flash_attention(q, k, v, True)
-    else:
-        chunked = self_attn and _use_chunked(cfg, t, k.shape[1])
-        if chunked:
-            attend = functools.partial(_chunked_sdpa, causal=causal, chunk=cfg.attention_chunk,
-                                       kv_len=kv_len)
+    with span(ATTENTION_CORE):  # attention from q, k, v, whatever route computes it
+        if cache is None and self_attn and causal and _use_flash(cfg, t, x.device):
+            out = flash_attention(q, k, v, True)
         else:
-            attend = functools.partial(_sdpa, causal=causal and self_attn, kv_len=kv_len)
-        if cache is None or chunked:
-            # over DTensors, on this rank's query block (`spmd.query_blocks`);
-            # the chunked attention's logits are never whole along the keys
-            out = spmd.query_blocks(attend, q, k, v, q_offset)
-        else:  # over DTensors, on this rank's slice of the cache (`spmd.cache_shards`)
-            parts = functools.partial(_sdpa_parts, causal=causal and self_attn, kv_len=kv_len)
-            out = spmd.cache_shards(attend, parts, q, k, v, q_offset)
+            chunked = self_attn and _use_chunked(cfg, t, k.shape[1])
+            if chunked:
+                attend = functools.partial(_chunked_sdpa, causal=causal, chunk=cfg.attention_chunk,
+                                           kv_len=kv_len)
+            else:
+                attend = functools.partial(_sdpa, causal=causal and self_attn, kv_len=kv_len)
+            if cache is None or chunked:
+                # over DTensors, on this rank's query block (`spmd.query_blocks`);
+                # the chunked attention's logits are never whole along the keys
+                out = spmd.query_blocks(attend, q, k, v, q_offset)
+            else:  # over DTensors, on this rank's slice of the cache (`spmd.cache_shards`)
+                parts = functools.partial(_sdpa_parts, causal=causal and self_attn, kv_len=kv_len)
+                out = spmd.cache_shards(attend, parts, q, k, v, q_offset)
 
     out = shard_activation(out, ("batch", "seq", "heads", "head_dim"))
     y = spmd.project("bthk,hkd->btd", out, p["wo"].to(cfg.cdtype))
@@ -409,23 +411,24 @@ def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, TensorS
 
 
 def mlp_apply(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    cd = cfg.cdtype
-    ffn_axes = ("batch", "seq", "ffn")
-    if cfg.mlp_act == "swiglu":
-        gate = spmd.project("btd,df->btf", x, p["wi_gate"].to(cd))
-        up = spmd.project("btd,df->btf", x, p["wi_up"].to(cd))
-        h = F.silu(gate.to(_F32)).to(cd) * up
+    with span(MLP):
+        cd = cfg.cdtype
+        ffn_axes = ("batch", "seq", "ffn")
+        if cfg.mlp_act == "swiglu":
+            gate = spmd.project("btd,df->btf", x, p["wi_gate"].to(cd))
+            up = spmd.project("btd,df->btf", x, p["wi_up"].to(cd))
+            h = F.silu(gate.to(_F32)).to(cd) * up
+            h = shard_activation(h, ffn_axes)
+            return spmd.project("btf,fd->btd", h, p["wo"].to(cd))
+        h = spmd.project("btd,df->btf", x, p["wi"].to(cd))
+        if "bi" in p:
+            h = h + p["bi"].to(cd)
+        h = F.gelu(h.to(_F32), approximate="tanh").to(cd)  # jax.nn.gelu's default
         h = shard_activation(h, ffn_axes)
-        return spmd.project("btf,fd->btd", h, p["wo"].to(cd))
-    h = spmd.project("btd,df->btf", x, p["wi"].to(cd))
-    if "bi" in p:
-        h = h + p["bi"].to(cd)
-    h = F.gelu(h.to(_F32), approximate="tanh").to(cd)  # jax.nn.gelu's default
-    h = shard_activation(h, ffn_axes)
-    y = spmd.project("btf,fd->btd", h, p["wo"].to(cd))
-    if "bo" in p:
-        y = y + p["bo"].to(cd)
-    return y
+        y = spmd.project("btf,fd->btd", h, p["wo"].to(cd))
+        if "bo" in p:
+            y = y + p["bo"].to(cd)
+        return y
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,7 @@ import torch
 from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.models.spec import flatten, unflatten
+from repro_torch.spans import TRAIN_GRADS, span
 
 __all__ = ["accumulate_gradients"]
 
@@ -74,11 +75,12 @@ def accumulate_gradients(
     tree = unflatten(tree, acc)  # drops the first slice's uncast gradients
     for i in range(1, n):
         g_tree, m = grad_fn(params, micro(i))
-        for a, g in zip(acc, flatten(g_tree)):
-            a.add_(to_accum(g))
+        with span(TRAIN_GRADS):
+            for a, g in zip(acc, flatten(g_tree)):
+                a.add_(to_accum(g))
         del g_tree
         m_acc = {k: m_acc[k] + m[k] for k in m_acc}
-    with torch.no_grad():
+    with torch.no_grad(), span(TRAIN_GRADS):
         for a in acc:
             a.mul_(torch.tensor(1.0 / n, dtype=a.dtype, device=a.device))
     metrics = {k: v * (1.0 / n) for k, v in m_acc.items()}

@@ -37,6 +37,7 @@ from repro_torch.models.spec import TensorSpec, flatten, unflatten
 from repro_torch.optim import OptState, clip_by_global_norm, linear_warmup_cosine, make_optimizer
 from repro_torch.parallel import spmd
 from repro_torch.parallel.microbatch import accumulate_gradients
+from repro_torch.spans import OPTIM_UPDATE, TRAIN_GRADS, span
 
 __all__ = ["TrainState", "init_train_state", "make_grad_fn", "make_serve_steps",
            "make_train_step", "train_state_specs"]
@@ -64,20 +65,22 @@ def make_grad_fn(model: Model, exec_cfg: ExecConfig) -> Callable[[Any, Dict[str,
             loss, metrics = model.loss_fn(mb, params=spmd.gathered(params))
             grads = list(torch.autograd.grad(loss, flat))
         if exec_cfg.bf16_grad_reduce:
-            for i, g in enumerate(grads):  # leaf by leaf: one float32 copy dropped at a time
-                if g.dtype == torch.float32:
-                    grads[i] = g.to(torch.bfloat16)
+            with span(TRAIN_GRADS):
+                for i, g in enumerate(grads):  # leaf by leaf: one float32 copy dropped at a time
+                    if g.dtype == torch.float32:
+                        grads[i] = g.to(torch.bfloat16)
         return unflatten(params, grads), {k: v.detach() for k, v in metrics.items()}
 
     def grad_fn(params, batch):
         grads, metrics = accumulate_gradients(micro_grads, params, batch,
                                               exec_cfg.num_microbatches,
                                               accum_dtype=accum_dtype)
-        flat = flatten(grads)
-        del grads
-        for i, g in enumerate(flat):
-            flat[i] = g.to(torch.float32)
-        grads, grad_norm = clip_by_global_norm(unflatten(params, flat), exec_cfg.grad_clip)
+        with span(TRAIN_GRADS):
+            flat = flatten(grads)
+            del grads
+            for i, g in enumerate(flat):
+                flat[i] = g.to(torch.float32)
+            grads, grad_norm = clip_by_global_norm(unflatten(params, flat), exec_cfg.grad_clip)
         return grads, dict(metrics, grad_norm=grad_norm)
 
     return grad_fn
@@ -92,9 +95,10 @@ def make_train_step(model: Model, exec_cfg: ExecConfig
     def train_step(state: TrainState, batch: Dict[str, Any]):
         params, opt = state["params"], state["opt"]
         grads, metrics = grad_fn(params, batch)
-        lr = linear_warmup_cosine(opt.step + 1, exec_cfg.learning_rate,
-                                  exec_cfg.warmup_steps, exec_cfg.total_steps)
-        params, opt = optimizer.update(params, opt, grads, lr)
+        with span(OPTIM_UPDATE):
+            lr = linear_warmup_cosine(opt.step + 1, exec_cfg.learning_rate,
+                                      exec_cfg.warmup_steps, exec_cfg.total_steps)
+            params, opt = optimizer.update(params, opt, grads, lr)
         metrics["lr"] = lr
         return {"params": params, "opt": opt}, metrics
 
