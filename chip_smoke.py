@@ -41,7 +41,11 @@ Phases, each reported on its own lines:
      llava's 3584 positions), of each microbatch of phases 21-24
      (zamba2's 2 x 4096, whisper's 8 x 512, llava's 2 x 3584) and of
      phase 25 (b)'s kimi-k2 layer (1 x 1024, bfloat16 and float32), held
-     and timed the same way;
+     and timed the same way; last the tensor-core route's backward kernel
+     at the training shapes (granite-8b's and Qwen3-8B's 1 x 4096 and those
+     of phases 21-24), held to the plain backward, one backward launch and
+     no forward launch a call, and timed beside its bound, the plain
+     backward and SDPA's backward (the yardstick);
   6. the Qwen3-8B teacher-forced forward at full width and depth (36
      layers, float32 parameters drawn on the card from a seed, bfloat16
      compute, B=1, T=4096), held against the same parameters run through
@@ -1789,6 +1793,17 @@ PLAIN_GRAPH_MAX_PAIRS = 4096
 # with D % 8 != 0) and the tensor-core one (bfloat16 with D % 8 == 0).
 FLASH_KERNEL_NAMES = ("flash_fwd_kernel", "flash_fwd_wgmma_kernel")
 FLASH_ROUTES = ("tensor_core", "cuda_core")  # kernel.route's names
+# K2's backward (the tensor-core route's) at the training shapes: phase 12's
+# qwen3-8b microbatch (the benchmark's granite-8b one too) and phases 21-24's.  Held to the plain
+# backward as `tests/test_torch_cuda.py` holds it (both round the same
+# float32 gradients once to bfloat16).
+BWD_FA_SHAPES = {"train": FWD_SHAPE, **TRAIN_FA_SHAPES}
+BWD_TOL_RTOL = 2.0**-7
+BWD_TOL_ATOL_OF_MAX = 2.0**-10
+# The forward's f32 row log-sum-exp against the plain forward's: both sum
+# the same f32 exponentials in another order (the kernel in base 2), some
+# 1e-6 apart at |lse| near 10; a wrong mask or tile is off by 0.1 or more.
+LSE_TOL = {"rtol": 0.0, "atol": 2.0**-14}
 
 
 def flash_counts(fa) -> dict:
@@ -1824,6 +1839,90 @@ def flash_bound(b, t, h, kv, d, causal, itemsize) -> dict:
     t_ops = flops / peak * 1e3
     return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def flash_bwd_bound(b, t, h, kv, d, causal, s=None) -> dict:
+    """Least time for one attention backward in bfloat16: its five products
+    (s, dp, dv, dk, dq) cost 10D for each query-key pair at or before the
+    query (causal, top-left aligned), over the tensor-core peak; its bytes
+    read q, k, v, o, dO and the f32 lse once and write dq, dk, dv once."""
+    s = t if s is None else s
+    per_head = sum(min(i + 1, s) for i in range(t)) if causal else t * s
+    flops = 10 * d * b * h * per_head
+    nbytes = 2 * (4 * b * t * h * d + 4 * b * s * kv * d) + 4 * b * h * t
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_BF16_PER_S * 1e3
+    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_flash_backward(dev) -> dict:
+    """K2's backward kernel at the training shapes: the forward's row
+    log-sum-exp held to the plain forward's, the backward held to the plain
+    backward, counted (one launch a call, no forward launch), and timed
+    beside its bound, the plain backward and SDPA's backward."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention.ops import (flash_attention_backward_plain,
+                                                         flash_attention_plain)
+    from repro_torch.testing import assert_close
+
+    fa, bwd = fa_kernel.flash_attention_cuda, fa_kernel.flash_attention_bwd_cuda
+    out = {}
+    for path, (b, t, h, kv, d) in BWD_FA_SHAPES.items():
+        g = torch.Generator(device=dev).manual_seed(500 + t + h + d)
+        q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+                       for shape in ((b, t, h, d), (b, t, kv, d), (b, t, kv, d), (b, t, h, d)))
+        o, lse = fa(q, k, v, causal=True, return_lse=True)
+        _, plain_lse = flash_attention_plain(q, k, v, causal=True, return_lse=True)
+        lse_err = assert_close(plain_lse.cpu().numpy(), lse.cpu().numpy(), **LSE_TOL,
+                               what=f"{path} lse kernel vs plain")
+        del plain_lse
+        before, fwd_before = bwd.launches, flash_counts(fa)
+        grads = bwd(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        if bwd.launches != before + 1 or flash_counts(fa) != fwd_before:
+            raise AssertionError(f"{path}: the backward launched {bwd.launches - before} times, "
+                                 f"the forward {flash_counts(fa)} against {fwd_before}")
+        plain = flash_attention_backward_plain(q, k, v, o, lse, do)
+        errs = {}
+        for name, x, p in zip(("dq", "dk", "dv"), grads, plain):
+            errs[name] = assert_close(p.float().cpu().numpy(), x.float().cpu().numpy(),
+                                      rtol=BWD_TOL_RTOL,
+                                      atol=BWD_TOL_ATOL_OF_MAX * float(p.float().abs().max()),
+                                      what=f"{path} {name} kernel vs plain")
+        del plain
+        pairs = -(-t // 128) * -(-t // 64) // 2  # the plain backward's tile loop
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        lib_out = sdpa(*leaves)
+        ms = cuda_time_ms(lambda: bwd(q, k, v, o, lse, do), reps=20)
+        k_dev = graph_ms(lambda: bwd(q, k, v, o, lse, do))
+        plain_ms = cuda_time_ms(lambda: flash_attention_backward_plain(q, k, v, o, lse, do),
+                                reps=1, warmup=1)
+        p_dev = (None if pairs > PLAIN_GRAPH_MAX_PAIRS else
+                 graph_ms(lambda: flash_attention_backward_plain(q, k, v, o, lse, do),
+                          calls=1, reps=3))
+        lib_ms = cuda_time_ms(lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True),
+                              reps=20)
+        bound = flash_bwd_bound(b, t, h, kv, d, True)
+        shape = f"B={b} T={t} H={h} KV={kv} D={d}"
+        print(f"  backward at {path}'s shape {shape} causal bfloat16: kernel {ms:.4f} ms "
+              f"(events) / {k_dev:.4f} ms (device), plain {plain_ms:.4f} ms / "
+              f"{'not captured' if p_dev is None else f'{p_dev:.4f} ms'}, SDPA's backward "
+              f"{lib_ms:.4f} ms (events); bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}, "
+              f"{bound['flops']} flop, {bound['bytes']} B): kernel at "
+              f"{bound['bound_ms'] / k_dev:.3f} of its bound, {bound['flops'] / k_dev / 1e9:.1f} "
+              f"TFLOP/s counted; max |kernel - plain| "
+              + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+              + f", the forward's lse {lse_err:.3e} ({LSE_TOL})")
+        out[path] = dict(shape=f"{shape} bfloat16 causal", max_abs_err=max(errs.values()),
+                         errs=errs, lse_err=lse_err, ms=ms, device_ms=k_dev, plain_ms=plain_ms,
+                         plain_device_ms=p_dev, library_ms=lib_ms, library_device_ms=None,
+                         **bound)
+        del q, k, v, do, o, lse, grads, leaves, lib_out
+        torch.cuda.empty_cache()
+    return out
 
 
 def sdpa(q, k, v):
@@ -1950,6 +2049,7 @@ def phase_flash(dev, report) -> dict:
             torch.cuda.empty_cache()
     routes["cuda_core"]["op_launches"] = op_counts["cuda_core"]
     routes["shapes"] = shapes
+    routes["backward"] = phase_flash_backward(dev)
     report["flash"] = {"case_errs": errs, **routes}
     return routes
 
@@ -2844,22 +2944,26 @@ TRAIN_HELD_LAYERS = {"hybrid_train": 6, "encdec_train": 1, "vlm_train": 1}
 def kernel_counters() -> dict:
     """Every kernel wrapper of the port, by name (each counts its launches)."""
     from repro_torch.kernels.ei_argmax.kernel import ei_argmax_cuda
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_cuda,
+                                                            flash_attention_cuda)
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
     from repro_torch.kernels.ssd.kernel import ssd_diag_cuda
 
     return {"ei_argmax": ei_argmax_cuda, "flash_attention": flash_attention_cuda,
-            "ssd_diag": ssd_diag_cuda, "rmsnorm": rmsnorm_cuda}
+            "flash_attention_bwd": flash_attention_bwd_cuda, "ssd_diag": ssd_diag_cuda,
+            "rmsnorm": rmsnorm_cuda}
 
 
 def train_launches(cfg, mb: int) -> dict:
     """K2 and K3 launches of one training step: a forward's
     (`family_launches`) for each microbatch, twice under remat (the forward
     and the backward's recompute; the configs' policies are "full" and
-    "none")."""
+    "none"); and K2's backward kernel once for each of a forward's K2 calls
+    and microbatch (every training path runs K2 on the tensor-core route)."""
     per = 1 if cfg.remat_policy == "none" else 2
     fwd = family_launches(cfg)
-    return {"flash_attention": per * mb * fwd["flash"], "ssd_diag": per * mb * fwd["ssd"]}
+    return {"flash_attention": per * mb * fwd["flash"], "flash_attention_bwd": mb * fwd["flash"],
+            "ssd_diag": per * mb * fwd["ssd"]}
 
 
 def fingerprint(tree) -> list:
@@ -3198,7 +3302,7 @@ def train_path(dev, report, path, phase) -> dict:
         micro = {k: v[:gbatch // mb] for k, v in place(ds.batch_at(3)).items()}
         grad_one = make_grad_fn(model, ex.replace(num_microbatches=1))
         names = tuple(n for k, ns in TRAIN_DEVICE_NAMES.items() if want[k] for n in ns)
-        ranges = tuple(TRAIN_BACKWARD_RANGES[k] for k in want if want[k])
+        ranges = tuple(r for k, r in TRAIN_BACKWARD_RANGES.items() if want[k])
         prof = train_breakdown(lambda: grad_one(resumed.state["params"], micro), names, ranges)
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
@@ -3258,7 +3362,8 @@ def train_path(dev, report, path, phase) -> dict:
     print(f"  profiled microbatch (forward and backward, {gbatch // mb} x {t}): wall "
           f"{prof['wall_ms']:.1f} ms, device busy {prof['device_busy_ms']:.1f} ms (idle share "
           f"{prof['idle_share']:.3f}), K2/K3 {prof['kernel_ms']:.1f} ms "
-          f"({prof['kernel_share']} of device time), their backward through the oracle "
+          f"({prof['kernel_share']} of device time), their backward ranges (K2's backward "
+          f"kernel on the tensor cores, the oracle elsewhere) "
           f"{prof['range_ms']} ms ({prof['range_share']} of device time), "
           f"{prof['device_kernels']:.0f} device kernels")
     for name, ms in prof["top_kernels_ms"].items():
@@ -3314,7 +3419,8 @@ def train_path(dev, report, path, phase) -> dict:
 def train_breakdown(fn, kernel_names, backward_ranges) -> dict:
     """One call of ``fn`` (a microbatch's gradient) under `torch.profiler`
     (`profile_summary`), and the device time of the kernels launched inside
-    the backward's profiler ranges (autograd through the oracle), where the
+    the backward's profiler ranges (K2's backward kernel on the tensor-core
+    route, autograd through the oracle elsewhere), where the
     profiler reports it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -4727,6 +4833,19 @@ def main(argv=None) -> int:
          "cuda_core"),
         ("parallel_pipeline", fa_times["tensor_core"], "tensor_core"),
     ))
+    # K2's backward at the training shapes, timed in phase 5; launches a step
+    # of phases 12 and 21-24's training paths (one a K2 call and microbatch).
+    kernels.extend({
+        "name": "flash_attention_bwd_wgmma",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd_wgmma.cu",
+        "replaces": None,  # the JAX package's backward is its oracle's VJP
+        "path": path,
+        "launches": trains[path]["flash_attention_bwd"],
+        **{k: t[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "device_ms",
+                              "plain_device_ms", "bound_ms", "bound_by", "library_ms",
+                              "library_device_ms")},
+    } for path, t in fa_times["backward"].items())
     # K2 on phase 26's path: (a)'s training step through `build_cell` at the
     # (1, 1) mesh (phase 12's cell; its microbatches are the forward shape).
     kernels.append({

@@ -3,8 +3,9 @@
 The sources under a kernel's ``csrc/`` are compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a plain-C shared library, loaded with `ctypes`.  The
 library lands in ``kernels/_build/`` (git-ignored), named by a hash of the
-sources and flags, so a changed source is rebuilt and an unchanged one is
-reused.  A failed build raises; there is no fallback.
+sources, the headers (``*.cuh``) beside them and the flags, so a changed
+source or header is rebuilt and an unchanged one is reused.  A failed build
+raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -46,8 +47,10 @@ def find_nvcc() -> str:
 
 
 def _digest(sources: Sequence[Path]) -> str:
+    """The flags, the sources and the headers (``*.cuh``) beside them."""
+    headers = sorted({hdr for src in sources for hdr in src.parent.glob("*.cuh")})
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [*sources, *headers]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -11,6 +11,9 @@
 //   m, l, acc: running max, denominator and f32 accumulator over key tiles
 //   p   = exp(s - m) in f32, summed into l
 //   out = acc / max(l, 1e-30), in bf16
+//   lse = m + log(max(l, 1e-30)) in f32, a row's log-sum-exp of the scaled
+//         scores, where the caller asks for it (the backward reads it:
+//         `flash_attention_bwd_wgmma.cu`)
 //
 // The tensor cores take P.V in bf16.  Rounding p to bf16 there (the usual
 // flash design) makes the result depend on the last bits of s: where two
@@ -72,10 +75,7 @@
 // K/V tiles of a head group by multicast, and a cheaper exact P.V (the
 // second product is the price of agreeing with the f32 p).
 
-#include <cuda.h>  // CUtensorMap and its enums: types only, no libcuda at link time
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "wgmma_common.cuh"
 
 #define TC_BQ 128      // queries a block: two warpgroups of 64 rows
 #define TC_BK 128      // keys a tile
@@ -89,194 +89,12 @@
 
 namespace {
 
-constexpr float kMasked = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// Waits for the phase of `bar` with this parity to complete.  A load that
-// never lands (a fault in a tensor map) traps after about 10 s rather than
-// leaving the card spinning.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  long long start = 0;
-  for (int i = 0;; ++i) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (i == 0) {
-      start = clock64();
-    } else if (clock64() - start > (1ll << 34)) {
-      __trap();
-    }
-  }
-}
-
-// One box of `map` at coordinates (d, head, pos, batch) into shared memory
-// at `dst`, completing `bar`'s transaction count.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int d, int head, int pos, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(head), "r"(pos), "r"(batch)
-      : "memory");
-}
-
 // A 128-row tile of DP columns: NA boxes of 64 columns, one atom each.
 template <int NA>
 __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                           int head, int pos, int batch) {
   mbar_expect_tx(bar, NA * TC_ATOM);
-#pragma unroll
-  for (int a = 0; a < NA; ++a) tma_load(dst + a * TC_ATOM, map, bar, 64 * a, head, pos, batch);
-}
-
-// Shared-memory matrix descriptor for `wgmma`, 128-byte swizzle: start
-// address, leading byte offset (K-major: unused; MN-major: the next 64
-// columns), stride byte offset 1024 (the next 8 rows of 128 bytes).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of accumulator registers
-// across the asynchronous products.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// (a, b) as two bf16 pairs hi + lo: hi rounds them, lo rounds what hi
-// leaves out (exact in f32), so hi + lo holds each to about 16 bits.  The
-// low half of a pair is the first (lower-column) value.
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-// 2^x by the special-function unit (relative error about 2^-22); results
-// below 2^-126 flush to 0.
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// D(64 x 128) (+)= A(64 x 16, shared, K-major) * B(16 x 128, shared, K-major);
-// ``accumulate`` 0 overwrites D.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// D(64 x 64) += A(64 x 16, registers) * B(16 x 64, shared, MN-major).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// D(64 x 128) += A(64 x 16, registers) * B(16 x 128, shared, MN-major).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <int DP>
-__device__ __forceinline__ void wgmma_pv(float (&acc)[DP / 2], const uint32_t* a, uint64_t b);
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&acc)[32], const uint32_t* a, uint64_t b) {
-  wgmma_rs_n64(acc, a, b);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&acc)[64], const uint32_t* a, uint64_t b) {
-  wgmma_rs_n128(acc, a, b);
+  tma_tile<NA, TC_ATOM>(dst, map, bar, head, pos, batch);
 }
 
 // DP: the head dim the tiles hold (64 or 128); D <= DP is the real one.
@@ -287,8 +105,8 @@ __device__ __forceinline__ void wgmma_pv<128>(float (&acc)[64], const uint32_t* 
 template <int DP>
 __global__ void __launch_bounds__(TC_THREADS, 1) flash_fwd_wgmma_kernel(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
-    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, int T, int S,
-    int H, int KV, int D, float scale_log2, int causal) {
+    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int T, int S, int H, int KV, int D, float scale_log2, int causal) {
   constexpr int NA = DP / 64;
   constexpr uint32_t TILE = NA * TC_ATOM;
   constexpr int NO = DP / 2;
@@ -423,8 +241,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1) flash_fwd_wgmma_kernel(
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
       const uint64_t vd = sw128_desc(sV + kk * 2048, TC_ATOM);
-      wgmma_pv<DP>(acc, &ph[4 * kk], vd);
-      wgmma_pv<DP>(acc, &pl[4 * kk], vd);
+      wgmma_rs_d<DP>(acc, &ph[4 * kk], vd);
+      wgmma_rs_d<DP>(acc, &pl[4 * kk], vd);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -433,6 +251,11 @@ __global__ void __launch_bounds__(TC_THREADS, 1) flash_fwd_wgmma_kernel(
   }
 
   const float d0 = fmaxf(quad_sum(l0), 1e-30f), d1 = fmaxf(quad_sum(l1), 1e-30f);
+  if (lse != nullptr && lane % 4 == 0) {  // log(sum exp(s)) = (m + log2 l) ln 2, m in base 2
+    float* lrow = lse + (static_cast<size_t>(b) * H + h) * T;
+    if (row0 < T) lrow[row0] = (m0 + log2f(d0)) * kLn2;
+    if (row0 + 8 < T) lrow[row0 + 8] = (m1 + log2f(d1)) * kLn2;
+  }
   const size_t row_stride = static_cast<size_t>(H) * D;
   __nv_bfloat16* o0 = o + (static_cast<size_t>(b) * T + row0) * row_stride + static_cast<size_t>(h) * D;
   __nv_bfloat16* o1 = o0 + 8 * row_stride;
@@ -450,45 +273,6 @@ __global__ void __launch_bounds__(TC_THREADS, 1) flash_fwd_wgmma_kernel(
   }
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime so that the library
-// needs no -lcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// (B, len, heads, D) bf16, contiguous, as a 4-D map (D, heads, len, B) read
-// in boxes of 64 columns x 1 head x 128 positions, 128-byte swizzled; reads
-// past D or len give zeros.
-bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B, int len, int heads,
-              int D) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)len, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)len * heads * D * 2};
-  const cuuint32_t box[4] = {64, 1, TC_BQ, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 size_t wgmma_smem_bytes(int D) {
   const int na = D <= 64 ? 1 : 2;
   return 1024 + static_cast<size_t>(na) * TC_ATOM * (1 + 2 * TC_STAGES);  // + 1 KB to align
@@ -496,7 +280,7 @@ size_t wgmma_smem_bytes(int D) {
 
 template <int DP>
 int launch_wgmma(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, void* o,
-                 int B, int T, int S, int H, int KV, int D, float scale, int causal,
+                 float* lse, int B, int T, int S, int H, int KV, int D, float scale, int causal,
                  cudaStream_t stream) {
   const size_t smem = wgmma_smem_bytes(DP);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<DP>,
@@ -504,7 +288,7 @@ int launch_wgmma(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, (T + TC_BQ - 1) / TC_BQ);
   flash_fwd_wgmma_kernel<DP><<<grid, TC_THREADS, smem, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), T, S, H, KV, D, scale * kLog2e, causal);
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, T, S, H, KV, D, scale * kLog2e, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -519,11 +303,12 @@ int flash_attention_wgmma_max_d(void) { return TC_MAX_D; }
 int flash_attention_wgmma_smem_bytes(int D) { return (int)wgmma_smem_bytes(D); }
 
 // bf16 q (B,T,H,D), k and v (B,S,KV,D) and o (B,T,H,D), contiguous and
-// 16-byte aligned, 8 <= D <= 128 with D % 8 == 0.  Launches on `stream`;
-// returns a cudaError_t (0 on success).
-int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, void* o, int B,
-                                 int T, int S, int H, int KV, int D, float scale, int causal,
-                                 void* stream) {
+// 16-byte aligned, 8 <= D <= 128 with D % 8 == 0; `lse`, unless null, the
+// f32 (B,H,T) row log-sum-exp of the scaled, masked scores, which the
+// backward reads.  Launches on `stream`; returns a cudaError_t (0 on success).
+int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, void* o,
+                                 void* lse, int B, int T, int S, int H, int KV, int D,
+                                 float scale, int causal, void* stream) {
   if (B < 1 || T < 1 || S < 1 || H < 1 || KV < 1 || KV > H || D < 8 || D > TC_MAX_D ||
       D % 8 != 0 || static_cast<long long>(B) * H > 2147483647LL ||
       (T + TC_BQ - 1) / TC_BQ > 65535) {
@@ -535,14 +320,17 @@ int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, vo
   }
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cudaError_t bound = bind_context();
+  if (bound != cudaSuccess) return static_cast<int>(bound);
   CUtensorMap qm, km, vm;
-  if (!make_map(enc, &qm, q, B, T, H, D) || !make_map(enc, &km, k, B, S, KV, D) ||
-      !make_map(enc, &vm, v, B, S, KV, D)) {
+  if (!make_map(enc, &qm, q, B, T, H, D, TC_BQ) || !make_map(enc, &km, k, B, S, KV, D, TC_BK) ||
+      !make_map(enc, &vm, v, B, S, KV, D, TC_BK)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 64) return launch_wgmma<64>(qm, km, vm, o, B, T, S, H, KV, D, scale, causal, st);
-  return launch_wgmma<128>(qm, km, vm, o, B, T, S, H, KV, D, scale, causal, st);
+  float* l = static_cast<float*>(lse);
+  if (D <= 64) return launch_wgmma<64>(qm, km, vm, o, l, B, T, S, H, KV, D, scale, causal, st);
+  return launch_wgmma<128>(qm, km, vm, o, l, B, T, S, H, KV, D, scale, causal, st);
 }
 
 }  // extern "C"

@@ -22,8 +22,11 @@ The ranges:
   (`runtime.steps`, `parallel.microbatch`);
 - `OPTIM_UPDATE` — the learning-rate schedule and the optimizer's update
   (`runtime.steps.make_train_step`);
-- `FLASH_ATTENTION_BACKWARD`, `SSD_DIAG_BACKWARD` — autograd through the
-  attention and SSD oracles in the kernels' backwards.
+- `FLASH_ATTENTION_BACKWARD` — the flash attention's backward: its
+  backward kernel on the tensor-core route, autograd through the attention
+  oracle elsewhere;
+- `SSD_DIAG_BACKWARD` — autograd through the SSD oracle in its kernel's
+  backward.
 
 Under remat, a layer's forward runs again in the backward, and so do its
 `ATTENTION_CORE` and `MLP` ranges.

@@ -557,6 +557,139 @@ def test_model_forward_launches_flash_once_per_layer(dev):
     assert_close(ref.cpu().numpy(), logits.cpu().numpy(), rtol=1e-4, atol=1e-5)
 
 
+# ---------------------------------------------------------------- K2's backward
+
+BWD_SHAPES = [  # (b, t, s, h, kv, d, causal): the zoo's training shapes that take the kernel
+    (1, 4096, 4096, 32, 8, 128, True),   # granite-8b (and Qwen3-8B): a train-4k-b2 microbatch
+    (2, 4096, 4096, 32, 32, 64, True),   # zamba2's shared block, 4 x 4096 in 2 microbatches
+    (2, 3584, 3584, 32, 8, 128, True),   # llava: 2880 patches + 704 text tokens, batch 2
+    (1, 4096, 4096, 64, 8, 112, True),   # kimi-k2: D = 112, between the tile widths
+    (8, 512, 512, 6, 6, 64, True),       # whisper's decoder self-attention, batch 8
+    (8, 512, 512, 6, 6, 64, False),      # whisper's shape bidirectional
+    (1, 1000, 1000, 8, 2, 96, True),     # ragged T at a D between the widths
+    (1, 200, 333, 4, 1, 48, False),      # T < S, both ragged, 4 query heads a KV head
+    (1, 333, 200, 4, 2, 64, True),       # T > S, causal: the late queries see every key
+]
+# The kernel against its plain version, each on the kernel's own output and
+# log-sum-exp: both round the same float32 gradients once to bfloat16 (they
+# differ only in the order of float32 sums, the 16-bit two-term p and ds
+# and the hardware exp2), so by at most one bfloat16 step (2^-7 relative),
+# with 2^-10 of the tensor's largest entry for entries near zero.
+BWD_PLAIN_TOL = dict(rtol=2.0**-7, atol_of_max=2.0**-10)
+# Against the float32 oracle on the same bfloat16 values: one rounding of
+# the output (2^-8 relative), and Di taken from the bfloat16 output o
+# rather than the float32 sum of p * dp (about 2^-9 of |dO . o| a row,
+# which moves each ds by p times that); 2^-7 of the largest entry covers
+# both at every shape here, where a gradient 5 % off would not pass.
+BWD_ORACLE_TOL = dict(rtol=2.0**-7, atol_of_max=2.0**-7)
+# The forward's f32 row log-sum-exp against the plain forward's: the same
+# f32 exponentials summed in another order (the kernel in base 2), some
+# 1e-6 apart at |lse| near 10; a wrong mask or tile is off by 0.1 or more.
+LSE_TOL = dict(rtol=0.0, atol=2.0**-14)
+
+
+def bwd_inputs(dev, seed, b, t, s, h, kv, d, dtype=torch.bfloat16):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
+                 for shape in ((b, t, h, d), (b, s, kv, d), (b, s, kv, d), (b, t, h, d)))
+
+
+def hold(ref, got, tol, what):
+    ref, got = ref.float(), got.float()
+    return assert_close(ref.cpu().numpy(), got.cpu().numpy(), rtol=tol["rtol"],
+                        atol=tol["atol_of_max"] * float(ref.abs().max()), what=what)
+
+
+def oracle_grads(q, k, v, g, causal):
+    """Autograd through `attention_ref` in float32 on the same values."""
+    leaves = [x.float().requires_grad_() for x in (q, k, v)]
+    return torch.autograd.grad(attention_ref(*leaves, causal=causal), leaves, g.float())
+
+
+@pytest.mark.parametrize("b,t,s,h,kv,d,causal", BWD_SHAPES)
+def test_flash_backward_kernel_holds_dq_dk_dv(dev, b, t, s, h, kv, d, causal):
+    """Through the op: one forward launch on the tensor-core route, one
+    backward launch; the forward's log-sum-exp held to the plain forward's;
+    dq, dk and dv each held to the plain backward and to the float32
+    oracle."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_backward_plain
+
+    q, k, v, g = bwd_inputs(dev, t + s + h + d, b, t, s, h, kv, d)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before, bwd = fa_counts(), fa_kernel.flash_attention_bwd_cuda.launches
+    out = flash_attention(*leaves, causal)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert fa_counts() == fa_launched(before, "tensor_core")
+    assert fa_kernel.flash_attention_bwd_cuda.launches == bwd + 1
+    o, lse = fa_kernel.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+    assert torch.equal(o, out.detach())
+    _, plain_lse = flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    assert_close(plain_lse.cpu().numpy(), lse.cpu().numpy(), **LSE_TOL, what="lse vs plain")
+    plain = flash_attention_backward_plain(q, k, v, o, lse, g, causal=causal)
+    ref = oracle_grads(q, k, v, g, causal)
+    for name, x, p, r in zip("qkv", leaves, plain, ref):
+        assert x.grad.dtype == torch.bfloat16 and bool(torch.isfinite(x.grad).all())
+        hold(p, x.grad, BWD_PLAIN_TOL, f"d{name} vs plain")
+        hold(r, x.grad, BWD_ORACLE_TOL, f"d{name} vs the float32 oracle")
+
+
+def test_flash_backward_kernel_takes_strided_and_unaligned_inputs(dev):
+    """A strided gradient (autograd may hand one in) is made contiguous, and
+    views 16-byte misaligned for TMA are copied: the same gradients bit for
+    bit."""
+    q, k, v, g = bwd_inputs(dev, 11, 1, 300, 300, 8, 2, 64)
+    o, lse = fa_kernel.flash_attention_cuda(q, k, v, return_lse=True)
+    want = fa_kernel.flash_attention_bwd_cuda(q, k, v, o, lse, g)
+    strided = g.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not strided.is_contiguous()
+
+    def misaligned(x):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        view = buf[1:].view(x.shape)
+        view.copy_(x)
+        assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+        return view
+
+    for args in ((q, k, v, o, lse, strided), tuple(misaligned(x) for x in (q, k, v, o, lse, g))):
+        got = fa_kernel.flash_attention_bwd_cuda(*args)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.bfloat16, 12)],
+                         ids=["f32-d64", "bf16-d12"])
+def test_flash_backward_off_the_tensor_core_route_is_the_oracles(dev, dtype, d):
+    """The CUDA-core route keeps autograd through the oracle: no backward
+    launch, the oracle's gradients bit for bit."""
+    q, k, v, g = bwd_inputs(dev, d, 2, 150, 150, 4, 2, d, dtype)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    bwd = fa_kernel.flash_attention_bwd_cuda.launches
+    flash_attention(*leaves, True).backward(g)
+    torch.cuda.synchronize()
+    assert fa_kernel.flash_attention_bwd_cuda.launches == bwd
+    ref_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref = torch.autograd.grad(attention_ref(*ref_leaves, causal=True), ref_leaves, g)
+    assert all(torch.equal(x.grad, r) for x, r in zip(leaves, ref))
+
+
+def test_flash_backward_kernel_rejects_what_it_cannot_take(dev):
+    q, k, v, g = bwd_inputs(dev, 0, 1, 128, 128, 4, 2, 64)
+    o, lse = fa_kernel.flash_attention_cuda(q, k, v, return_lse=True)
+    with pytest.raises(ValueError):  # the CUDA-core route has no backward kernel
+        fa_kernel.flash_attention_bwd_cuda(q.float(), k.float(), v.float(), o.float(), lse,
+                                           g.float())
+    with pytest.raises(TypeError):
+        fa_kernel.flash_attention_bwd_cuda(q, k, v, o, lse.bfloat16(), g)
+    with pytest.raises(ValueError):
+        fa_kernel.flash_attention_bwd_cuda(q, k, v, o[:, :64], lse, g)
+    q3, k3, v3, g3 = bwd_inputs(dev, 0, 1, 128, 128, 6, 4, 64)  # H not a multiple of KV
+    o3, lse3 = fa_kernel.flash_attention_cuda(q3, k3, v3, return_lse=True)
+    with pytest.raises(ValueError):
+        fa_kernel.flash_attention_bwd_cuda(q3, k3, v3, o3, lse3, g3)
+    with pytest.raises(ValueError):
+        fa_kernel.flash_attention_cuda(q.float(), k.float(), v.float(), return_lse=True)
+
+
 # ---------------------------------------------------------------- SSD intra-chunk (K3)
 
 SSD_SHAPES = [  # (b, nc, q, h, p, n): tests/test_kernels.py's four, ragged, smoke model
@@ -761,6 +894,41 @@ def test_train_step_launches_kernels_twice_per_layer(dev, arch):
     _, ref = make_train_step(cpu, ex)(init_train_state(cpu, ex), shard_batch(batch, "cpu"))
     for k in ("loss", "grad_norm"):
         assert_close(float(ref[k]), float(m[k]), rtol=1e-4, atol=1e-5, what=k)
+
+
+def test_granite_training_step_runs_the_backward_kernel(dev, monkeypatch):
+    """One step of granite-8b at 12 of its 36 layers (the benchmark's
+    `granite-8b.train-4k`: 2 x 4096 tokens in 2 microbatches, full remat,
+    AdamW): 24 backward launches (one a layer and microbatch), 48 forward
+    ones on the tensor-core route (the forward and remat's recompute), none
+    on the CUDA-core route, and nothing through the oracle."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import make_batch, shard_batch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.steps import init_train_state, make_train_step
+
+    def no_oracle(*a, **k):
+        raise AssertionError("the attention backward went through the oracle")
+
+    monkeypatch.setattr(fa_ops, "attention_ref", no_oracle)
+    spec = configs.get("granite-8b")
+    cfg = spec.model.replace(num_layers=12)
+    assert (cfg.remat_policy, cfg.compute_dtype) == ("full", "bfloat16")
+    ex = spec.exec.replace(optimizer="adamw", num_microbatches=2)
+    torch.cuda.empty_cache()
+    model = Model(cfg, device=dev, seed=0)
+    state = init_train_state(model, ex)
+    batch = shard_batch(make_batch(cfg, 2, 4096, seed=0), dev)
+    before, bwd = fa_counts(), fa_kernel.flash_attention_bwd_cuda.launches
+    state, m = make_train_step(model, ex)(state, batch)
+    torch.cuda.synchronize()
+    n, tc, cc = before
+    assert fa_counts() == (n + 48, tc + 48, cc)
+    assert fa_kernel.flash_attention_bwd_cuda.launches == bwd + 24
+    assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))
+    del state, model
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- the other families

@@ -18,8 +18,14 @@ it multiplies the float32 probabilities into V (the tensor-core kernel
 feeds them to the bfloat16 tensor cores as two terms, about 16 bits), so a
 bfloat16 input rounds only the output.
 
+The backward: on the CPU the op differentiates through the port's
+`attention_ref` (held against the reference's custom VJP below); a CUDA
+tensor on the tensor-core route runs the backward kernel, whose plain
+version `ops.flash_attention_backward_plain` is held here against autograd
+through `attention_ref`, in float32, dq, dk and dv each on its own.
+
 The CUDA kernels themselves run only on the card: `tests/test_torch_cuda.py`
-holds them against the plain version there.
+holds them against the plain versions there.
 """
 
 import types
@@ -198,5 +204,132 @@ def test_cuda_tensor_never_reaches_plain_version(monkeypatch):
     q = torch.zeros((1, 128, 2, 32))
     with pytest.raises(ValueError):
         port_kernel.flash_attention_cuda(q, q, q)
+    with pytest.raises(ValueError):
+        port_kernel.flash_attention_bwd_cuda(q, q, q, q, torch.zeros((1, 2, 128)), q)
     fa = port_kernel.flash_attention_cuda
     assert (fa.launches, fa.tensor_core_launches, fa.cuda_core_launches) == (0, 0, 0)
+    assert port_kernel.flash_attention_bwd_cuda.launches == 0
+
+
+# ---------------------------------------------------------------- the backward
+
+BWD_CASES = [  # (b, t, s, h, kv, d, causal, tolerance): float32, sums in another order
+    (1, 128, 128, 4, 4, 64, True, F32),     # no grouping
+    (1, 200, 200, 8, 2, 112, True, F32),    # 4 query heads a KV head, D = 112, ragged T
+    (2, 130, 130, 8, 1, 128, False, F32),   # 8 a KV head, bidirectional, ragged T
+    (1, 150, 150, 32, 4, 64, True, F32),    # 8 a KV head, causal, ragged T
+    (1, 77, 77, 4, 4, 128, True, F32),      # one partial tile
+    (1, 333, 200, 8, 1, 64, False, F32),    # T > S, bidirectional
+    (1, 200, 333, 4, 1, 128, False, F32),   # T < S, bidirectional
+    (1, 333, 200, 4, 2, 64, True, F32),     # T > S, causal: late queries see every key
+]
+
+
+def grad_inputs(seed, b, t, s, h, kv, d):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                 for shape in ((b, t, h, d), (b, s, kv, d), (b, s, kv, d), (b, t, h, d)))
+
+
+def oracle_grads(q, k, v, g, causal):
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    return torch.autograd.grad(attention_ref(*leaves, causal=causal), leaves, g)
+
+
+@pytest.mark.parametrize("b,t,s,h,kv,d,causal,tol", BWD_CASES)
+def test_backward_plain_version_matches_oracle_autograd(b, t, s, h, kv, d, causal, tol):
+    """The backward kernel's arithmetic (Di from the output, p from the
+    saved log-sum-exp, dk and dv summed over a KV head's query heads) gives
+    autograd's dq, dk and dv through the oracle, each held on its own."""
+    q, k, v, g = grad_inputs(t + s + h + d, b, t, s, h, kv, d)
+    o, lse = port_ops.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    got = port_ops.flash_attention_backward_plain(q, k, v, o, lse, g, causal=causal)
+    for name, x, want, ref in zip("qkv", got, (q, k, v), oracle_grads(q, k, v, g, causal)):
+        assert x.shape == want.shape and x.dtype == want.dtype
+        assert_close(ref.numpy(), x.numpy(), **tol, what=f"d{name}")
+
+
+@pytest.mark.parametrize("b,t,s,h,kv,d,causal", [
+    (1, 200, 200, 8, 2, 64, True), (2, 130, 130, 4, 4, 128, False), (1, 333, 200, 4, 2, 48, True),
+    (1, 100, 250, 6, 3, 32, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_plain_forward_lse_is_logsumexp_of_the_oracles_logits(b, t, s, h, kv, d, causal, dtype):
+    """The row log-sum-exp the forward hands the backward: torch.logsumexp
+    over the oracle's scaled, masked float32 logits, (B, H, T)."""
+    q, k, v, _ = (x.to(dtype) for x in grad_inputs(t + d, b, t, s, h, kv, d))
+    _, lse = port_ops.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    logits = torch.einsum("bthd,bshd->bhts", q.float(),
+                          k.float().repeat_interleave(h // kv, dim=2)) / d ** 0.5
+    if causal:
+        logits = logits.masked_fill(torch.arange(t)[:, None] < torch.arange(s)[None, :], -1e30)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, t)
+    assert_close(torch.logsumexp(logits, -1).numpy(), lse.numpy(), **F32, what="lse")
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.bfloat16, 64),
+                                     (torch.bfloat16, 12)])
+def test_cpu_backward_is_autograd_through_the_oracle(monkeypatch, dtype, d):
+    """A CPU tensor's backward reaches neither the backward kernel's wrapper
+    nor its plain version: it is autograd through `attention_ref`, bit for
+    bit."""
+    def refuse(*a, **k):
+        raise AssertionError("the CPU backward reached the backward kernel's path")
+
+    monkeypatch.setattr(port_ops, "flash_attention_bwd_cuda", refuse)
+    monkeypatch.setattr(port_ops, "flash_attention_backward_plain", refuse)
+    q, k, v, g = (x.to(dtype) for x in grad_inputs(d, 1, 150, 150, 4, 2, d))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    port_ops.flash_attention(*leaves, True).backward(g)
+    for x, ref in zip(leaves, oracle_grads(q, k, v, g, True)):
+        assert torch.equal(x.grad, ref)
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu", "meta"])
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128), (torch.bfloat16, 112),
+                                     (torch.bfloat16, 64), (torch.bfloat16, 8),
+                                     (torch.bfloat16, 12), (torch.bfloat16, 4),
+                                     (torch.float32, 128), (torch.float32, 64)])
+def test_backward_takes_the_kernel_exactly_on_the_tensor_core_route(device, dtype, d):
+    fake = types.SimpleNamespace(device=torch.device(device), dtype=dtype, shape=(1, 128, 4, d))
+    want = device == "cuda" and port_kernel.route(dtype, d) == "tensor_core"
+    assert port_ops._kernel_backward(fake) == want
+
+
+@pytest.mark.parametrize("kernel_route", [True, False], ids=["kernel", "oracle"])
+def test_op_backward_wiring(monkeypatch, kernel_route):
+    """Where `_kernel_backward` holds and a gradient is wanted, the op's
+    forward asks for the log-sum-exp and its backward hands the backward
+    kernel q, k, v, the output, the log-sum-exp and the gradient, once, and
+    never reaches the oracle; elsewhere the forward asks for no log-sum-exp
+    and the backward is the oracle's.  The backward kernel is stood in for
+    by its plain version, on the CPU."""
+    calls = {"lse": [], "bwd": 0, "oracle": 0}
+    oracle, plain = port_ops.attention_ref, port_ops.flash_attention_plain
+
+    def fwd(q, k, v, *, causal, sm_scale, return_lse):
+        calls["lse"].append(return_lse)
+        return plain(q, k, v, causal=causal, sm_scale=sm_scale, return_lse=return_lse)
+
+    def bwd(q, k, v, o, lse, g, *, causal, sm_scale):
+        calls["bwd"] += 1
+        return port_ops.flash_attention_backward_plain(q, k, v, o, lse, g, causal=causal,
+                                                       sm_scale=sm_scale)
+
+    def counted_oracle(*a, **kw):
+        calls["oracle"] += 1
+        return oracle(*a, **kw)
+
+    monkeypatch.setattr(port_ops, "_kernel_backward", lambda q: kernel_route)
+    monkeypatch.setattr(port_ops, "flash_attention_plain", fwd)
+    monkeypatch.setattr(port_ops, "flash_attention_bwd_cuda", bwd)
+    monkeypatch.setattr(port_ops, "attention_ref", counted_oracle)
+    q, k, v, g = grad_inputs(9, 2, 130, 130, 8, 2, 64)
+    with torch.no_grad():  # no backward to come: the forward asks for no log-sum-exp
+        port_ops.flash_attention(q, k, v, True)
+    assert calls == {"lse": [False], "bwd": 0, "oracle": 0}
+    leaves = [x.clone().requires_grad_() for x in (q, k.transpose(1, 2).contiguous().transpose(1, 2), v)]
+    port_ops.flash_attention(*leaves, True).backward(g)
+    assert calls == ({"lse": [False, True], "bwd": 1, "oracle": 0} if kernel_route
+                     else {"lse": [False, False], "bwd": 0, "oracle": 1})
+    for x, ref in zip(leaves, oracle_grads(q, k, v, g, True)):
+        assert_close(ref.numpy(), x.grad.numpy(), **F32)
